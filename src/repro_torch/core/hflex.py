@@ -1,0 +1,534 @@
+"""HFlex packing: scheduled non-zero streams + pointer lists Q.
+
+Two packed representations are produced from one :class:`SparseMatrix`:
+
+1. **PE streams** (paper-faithful, Section 3.4): per PE ``p``, the scheduled
+   non-zero lists of all windows ``A_pj`` concatenated linearly, with a
+   pointer list ``Q[p]`` of ``K/K0 + 1`` entries recording each window's
+   start. Elements are encoded in the paper's 64-bit format
+   (18-bit row | 14-bit col | 32-bit value). This feeds the cycle-accurate
+   performance model and the fidelity tests.
+
+2. **Block slabs** (the SpMM kernels' format): per (TM-row block, window), non-zeros
+   padded to a chunk multiple and stored in dense slabs
+   ``vals/cols/rows : (MB, NW, LW)`` with a count matrix ``q : (MB, NW)``.
+   ``q`` gives each CUDA block its per-window trip count —
+   the kernels' form of the paper's pointer list Q: one compiled kernel
+   executes any matrix whose padded geometry fits the bucket.
+
+Padding slots carry ``val = 0`` so they are computationally inert (the
+paper's bubbles); correctness never depends on ``q``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .partition import SextansParams, WindowPartition, block_rows, bin_rows_mod, cdiv, partition_windows
+from .schedule import BUBBLE, Schedule, schedule_nonzeros
+from .sparse import SparseMatrix
+
+__all__ = [
+    "encode_a64",
+    "decode_a64",
+    "PEStreams",
+    "pack_pe_streams",
+    "BlockSlabs",
+    "pack_block_slabs",
+    "bucket_geometry",
+]
+
+# ---------------------------------------------------------------------------
+# 64-bit element encoding (paper Section 3.2, step 1):
+#   [63:46] row (18 bits) | [45:32] col (14 bits) | [31:0] fp32 value
+# ---------------------------------------------------------------------------
+
+_ROW_BITS = 18
+_COL_BITS = 14
+
+
+def encode_a64(row: np.ndarray, col: np.ndarray, val: np.ndarray) -> np.ndarray:
+    if row.size and (row.max() >= (1 << _ROW_BITS) or row.min() < 0):
+        raise ValueError("row index exceeds 18-bit compressed range")
+    if col.size and (col.max() >= (1 << _COL_BITS) or col.min() < 0):
+        raise ValueError("col index exceeds 14-bit compressed range")
+    bits = val.astype(np.float32).view(np.uint32).astype(np.uint64)
+    word = (
+        (row.astype(np.uint64) << np.uint64(_COL_BITS + 32))
+        | (col.astype(np.uint64) << np.uint64(32))
+        | bits
+    )
+    return word
+
+
+def decode_a64(word: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    row = (word >> np.uint64(_COL_BITS + 32)).astype(np.int32)
+    col = ((word >> np.uint64(32)) & np.uint64((1 << _COL_BITS) - 1)).astype(np.int32)
+    val = (word & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.float32)
+    return row, col, val
+
+
+# ---------------------------------------------------------------------------
+# 1. Paper-faithful PE streams
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PEStreams:
+    """Scheduled per-PE streams + Q pointers (paper Fig. 5 (k)(l))."""
+
+    params: SextansParams
+    shape: Tuple[int, int]
+    nnz: int
+    # stream[p]: uint64 array of scheduled elements *including bubbles*
+    # (bubble = all-ones word, row index 2^18-1 is reserved).
+    streams: List[np.ndarray]
+    # q[p]: int64 array of K/K0+1 window start offsets into streams[p]
+    q: List[np.ndarray]
+    total_cycles: int          # max over PEs of stream length (parallel PEs)
+    bubble_fraction: float
+
+    BUBBLE_WORD = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def pack_pe_streams(
+    a: SparseMatrix,
+    params: Optional[SextansParams] = None,
+    reorder_window: Optional[int] = None,
+    hub_split: int = 0,
+    mode: str = "auto",
+) -> PEStreams:
+    """Partition (Eq. 3-4) -> schedule (Sec. 3.3) -> pack linearly with Q.
+
+    ``hub_split > 0`` enables the beyond-paper virtual-sub-row transform
+    (schedule.split_hub_rows) before scheduling: hub rows stop serializing
+    a PE; merged back in the CompC pass.
+
+    ``mode`` selects the scheduler (see :mod:`repro_torch.core.schedule`):
+    ``"vectorized"`` runs one cross-group NumPy pass over *all*
+    (window, PE) streams at once — the production preprocessing hot path
+    (the ``sched_preprocess`` benchmark); ``"greedy"`` is the paper-exact
+    per-element reference the performance model charges.  ``"auto"``
+    resolves to vectorized unless ``reorder_window`` is set (greedy-only).
+    """
+    params = params or SextansParams()
+    a.validate()
+    if mode not in ("auto", "vectorized", "greedy"):
+        raise ValueError(f"unknown scheduler mode {mode!r}")
+    if mode == "vectorized" and reorder_window is not None:
+        raise ValueError("reorder window is only supported by mode='greedy'")
+    if mode == "greedy" or reorder_window is not None:
+        return _pack_pe_streams_greedy(a, params, reorder_window, hub_split)
+    return _pack_pe_streams_vectorized(a, params, hub_split)
+
+
+def _pack_pe_streams_greedy(
+    a: SparseMatrix,
+    params: SextansParams,
+    reorder_window: Optional[int],
+    hub_split: int,
+) -> PEStreams:
+    """Reference packer: per-(window, PE) exact-greedy scheduling loop."""
+    from .schedule import split_hub_rows
+
+    m, k = a.shape
+    windows = partition_windows(a, params.K0)
+    nw = len(windows)
+    streams: List[List[np.ndarray]] = [[] for _ in range(params.P)]
+    qs: List[List[int]] = [[0] for _ in range(params.P)]
+    total_bubbles = 0
+    total_slots = 0
+    for w in windows:
+        per_pe = bin_rows_mod(w, params.P)
+        for p in range(params.P):
+            wp = per_pe[p]
+            sched_rows = (split_hub_rows(wp.row, hub_split)
+                          if hub_split else wp.row)
+            sched = schedule_nonzeros(sched_rows, params.D, reorder_window,
+                                      mode="greedy")
+            words = np.full(sched.cycles, PEStreams.BUBBLE_WORD, np.uint64)
+            real = sched.slots != BUBBLE
+            src = sched.slots[real]
+            words[real] = encode_a64(wp.row[src], wp.col[src], wp.val[src])
+            streams[p].append(words)
+            qs[p].append(qs[p][-1] + sched.cycles)
+            total_bubbles += sched.bubbles
+            total_slots += sched.cycles
+    cat = [
+        np.concatenate(s) if s else np.empty((0,), np.uint64) for s in streams
+    ]
+    return PEStreams(
+        params=params,
+        shape=(m, k),
+        nnz=a.nnz,
+        streams=cat,
+        q=[np.asarray(qq, np.int64) for qq in qs],
+        total_cycles=max((len(s) for s in cat), default=0),
+        bubble_fraction=(total_bubbles / total_slots) if total_slots else 0.0,
+    )
+
+
+def _pack_pe_streams_vectorized(
+    a: SparseMatrix,
+    params: SextansParams,
+    hub_split: int,
+) -> PEStreams:
+    """One NumPy pass over every (window, PE) stream at once.
+
+    Uses the occurrence-level scheduler of :mod:`repro_torch.core.schedule`
+    (``mode="vectorized"``) generalized across groups: elements are keyed by
+    (group, occurrence level, row count desc, row id), level offsets are a
+    segmented cumsum, and the final 64-bit words are scattered into one flat
+    buffer that is then split per PE.  No per-element (or per-window) Python
+    loop — this is the ``sched_preprocess`` serving hot path.
+    """
+    a = a.sorted_column_major()
+    m, k = a.shape
+    P, K0, D = params.P, params.K0, params.D
+    nw = cdiv(k, K0) if k else 0
+    n = a.nnz
+
+    if n == 0 or nw == 0:
+        q0 = np.zeros(nw + 1, np.int64)
+        return PEStreams(
+            params=params, shape=(m, k), nnz=0,
+            streams=[np.empty((0,), np.uint64) for _ in range(P)],
+            q=[q0.copy() for _ in range(P)],
+            total_cycles=0, bubble_fraction=0.0,
+        )
+
+    win, lc = _divmod_fast(a.col, K0)
+    lr, pe = _divmod_fast(a.row, P)
+
+    # Occurrence index / count within each (group, local-row) pair, in the
+    # column-major stream order, where group = one (window, PE) stream.
+    # The pipeline is memory-bound: per-element arrays stay int32 whenever
+    # the key range allows (the common case), and the one stable sort runs
+    # as a quicksort over a tie-broken unique int64 composite — NumPy's
+    # stable argsort is 4-5x slower.
+    stride = (m - 1) // P + 2 if m else 2
+    key_bound = nw * P * stride
+    # int32 everywhere requires the sort key, slot offsets (<= n*(D+1)) and
+    # element count to fit.
+    small = (key_bound < np.iinfo(np.int32).max
+             and (n + 1) * (D + 1) < np.iinfo(np.int32).max)
+    idt = np.int32 if small else np.int64
+    arange_n = np.arange(n, dtype=idt)
+    if small:
+        kk = (win * np.int32(P) + pe) * np.int32(stride) + lr
+    else:
+        kk = (win.astype(np.int64) * P + pe) * stride + lr
+    if key_bound < 2**62 // max(n, 1):
+        order1 = np.argsort(kk.astype(np.int64) * n + arange_n)
+    else:
+        order1 = np.argsort(kk, kind="stable")
+    kk_s = kk[order1]
+    new_run = np.empty(n, bool)
+    new_run[0] = True
+    new_run[1:] = kk_s[1:] != kk_s[:-1]
+    if hub_split > 0:
+        # Virtual sub-rows (schedule.split_hub_rows, fused): occurrence j of
+        # a (group, row) run becomes occurrence j % t of virtual sub-row
+        # j // t — sub-run boundaries are every t-th element of a run.
+        run_id0 = np.cumsum(new_run, dtype=idt) - idt(1)
+        start0 = np.nonzero(new_run)[0].astype(idt)
+        occ0 = arange_n - start0[run_id0]
+        new_run |= (occ0 % hub_split) == 0
+    run_id_s = np.cumsum(new_run, dtype=idt) - idt(1)     # run = scheduled row
+    run_start = np.nonzero(new_run)[0].astype(idt)
+    nruns = run_start.shape[0]
+    run_cnt = np.diff(np.append(run_start, idt(n)))
+    run_g = kk_s[run_start] // idt(stride)                # run -> group id
+
+    # Per-run rank within its group under (count desc, first-position asc):
+    # a surviving row keeps the same rank at every level it appears in, so
+    # same-row spacing == level length >= D (see schedule.py for the proof).
+    cmax_all = int(run_cnt.max())
+    if nw * P * (cmax_all + 1) < 2**62 // (n + 1):
+        order_r = np.argsort(
+            (run_g.astype(np.int64) * (cmax_all + 1)
+             + (cmax_all - run_cnt)) * (n + 1) + run_start)
+    else:
+        order_r = np.lexsort((run_start, -run_cnt, run_g))
+    new_grp = np.empty(nruns, bool)
+    new_grp[0] = True
+    new_grp[1:] = run_g[order_r][1:] != run_g[order_r][:-1]
+    grp_start_r = np.nonzero(new_grp)[0].astype(idt)
+    grp_of_rrun = np.cumsum(new_grp, dtype=idt) - idt(1)  # dense group rank
+    rank_sorted = np.arange(nruns, dtype=idt) - grp_start_r[grp_of_rrun]
+    run_rank = np.empty(nruns, idt)
+    run_rank[order_r] = rank_sorted
+    run_grp = np.empty(nruns, idt)                        # run -> dense group
+    run_grp[order_r] = grp_of_rrun
+    ngrp = int(grp_start_r.shape[0])
+    grp_g = run_g[order_r][grp_start_r]                   # dense grp -> g id
+    grp_cmax = run_cnt[order_r][grp_start_r]              # max count = #levels
+
+    # Level populations n_{g,k} = #runs in g with count > k, via a
+    # difference array over (group, level) slots (+1 extra slot per group so
+    # a full-length run's -1 stays inside its own group).
+    base = np.zeros(ngrp + 1, idt)
+    np.cumsum(grp_cmax + idt(1), out=base[1:])
+    nslots = int(base[-1])
+    run_base = base[run_grp]
+    diff = (np.bincount(run_base, minlength=nslots)
+            - np.bincount(run_base + run_cnt, minlength=nslots))
+    n_k = np.cumsum(diff, dtype=idt)                      # n_{g,k} at base[g]+k
+    lengths = np.maximum(n_k, idt(D))
+    last_lvl = base[1:] - 2                               # k = cmax_g - 1
+    lengths[last_lvl] = n_k[last_lvl]                     # last level: no pad
+    lengths[base[1:] - 1] = 0                             # the extra slot
+    cum = np.zeros(nslots + 1, idt)
+    np.cumsum(lengths, out=cum[1:])
+    level_off = cum[:-1] - cum[base][np.repeat(
+        np.arange(ngrp), grp_cmax + 1)]                   # offset within group
+    grp_cycles = (level_off[last_lvl]
+                  + n_k[last_lvl]).astype(np.int64)
+
+    # Per-(PE, window) cycle counts -> Q pointers -> flat stream buffer.
+    group_cycles = np.zeros(nw * P, np.int64)
+    group_cycles[grp_g] = grp_cycles
+    cyc = group_cycles.reshape(nw, P).T                   # (P, NW)
+    qmat = np.zeros((P, nw + 1), np.int64)
+    np.cumsum(cyc, axis=1, out=qmat[:, 1:])
+    pe_len = qmat[:, -1]
+    pe_base = np.zeros(P + 1, np.int64)
+    np.cumsum(pe_len, out=pe_base[1:])
+
+    # Element scatter position = flat-buffer base of its (PE, window) group
+    # + its within-group slot.  All per-run terms are folded into two small
+    # lookup tables so the per-element work is three gathers + two adds:
+    #   level index  = stream_rank + (level_base_of_run - run_start)
+    #   position     = level_off[level index] + (rank + group_base)_of_run
+    gpe = grp_g % idt(P)
+    group_pos = (pe_base[gpe]
+                 + qmat[gpe, grp_g // idt(P)]).astype(idt)  # per dense group
+    lvl_shift = run_base - run_start                      # per run
+    pos_base = run_rank + group_pos[run_grp]              # per run
+    pos = (level_off[arange_n + lvl_shift[run_id_s]]
+           + pos_base[run_id_s])
+
+    # 64-bit words, written as two 32-bit halves so the encode stays in
+    # int32 (half the temporary traffic of a uint64 build).  Bounds are
+    # checked once on the geometry (O(1)) instead of per-element
+    # reductions: every local row is < cdiv(m, P) and every local col < K0
+    # by construction of the partition.
+    if (m - 1) // P >= (1 << _ROW_BITS) or K0 > (1 << _COL_BITS):
+        raise ValueError("local row/col exceed the 64-bit element encoding")
+    val32 = np.ascontiguousarray(a.val, np.float32)
+    flat = np.full(int(pe_base[-1]), PEStreams.BUBBLE_WORD, np.uint64)
+    if np.little_endian and small:
+        # int32 shift/or wraps to the same bit pattern as uint32; the view
+        # reinterprets without a copy.  Indices may arrive as int64 (e.g.
+        # np.nonzero output) — coerce so the view stays one half per word
+        # ('small' already guarantees the values fit).
+        lr32 = np.ascontiguousarray(lr, np.int32)
+        lc32 = np.ascontiguousarray(lc, np.int32)
+        halves = flat.view(np.uint32).reshape(-1, 2)
+        src = order1
+        halves[pos, 0] = val32.view(np.uint32)[src]
+        halves[pos, 1] = ((lr32 << np.int32(_COL_BITS))
+                          | lc32).view(np.uint32)[src]
+    else:                                  # big-endian / huge-key fallback
+        flat[pos] = encode_a64(lr, lc, val32)[order1]
+
+    total_slots = int(cyc.sum())
+    return PEStreams(
+        params=params,
+        shape=(m, k),
+        nnz=n,
+        streams=list(np.split(flat, pe_base[1:-1])),
+        q=[qmat[p].copy() for p in range(P)],
+        total_cycles=int(pe_len.max()) if P else 0,
+        bubble_fraction=((total_slots - n) / total_slots) if total_slots else 0.0,
+    )
+
+
+def _divmod_fast(x: np.ndarray, b: int):
+    """(x // b, x % b) with shift/mask when b is a power of two (the default
+    accelerator geometry) — the packers' per-element divisions are hot."""
+    if b > 0 and (b & (b - 1)) == 0:
+        s = b.bit_length() - 1
+        return x >> s, x & (b - 1)
+    return np.divmod(x, b)
+
+
+def unpack_pe_streams(ps: PEStreams) -> SparseMatrix:
+    """Inverse of pack_pe_streams (for round-trip property tests)."""
+    rows, cols, vals = [], [], []
+    k0, p_ = ps.params.K0, ps.params.P
+    for p in range(p_):
+        stream, q = ps.streams[p], ps.q[p]
+        for j in range(len(q) - 1):
+            words = stream[q[j] : q[j + 1]]
+            words = words[words != PEStreams.BUBBLE_WORD]
+            if words.size == 0:
+                continue
+            lr, lc, v = decode_a64(words)
+            rows.append(lr * p_ + p)          # undo mod-interleave compression
+            cols.append(lc + j * k0)          # undo window compression
+            vals.append(v)
+    if not rows:
+        return SparseMatrix(ps.shape, np.empty(0, np.int32), np.empty(0, np.int32), np.empty(0, np.float32))
+    sm = SparseMatrix(
+        ps.shape,
+        np.concatenate(rows).astype(np.int32),
+        np.concatenate(cols).astype(np.int32),
+        np.concatenate(vals).astype(np.float32),
+    )
+    return sm.sorted_column_major()
+
+
+# ---------------------------------------------------------------------------
+# 2. Kernel block-slab format
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BlockSlabs:
+    """Dense slabs of packed non-zeros for the SpMM kernels.
+
+    vals : (MB, NW, LW) float32   — 0.0 in padding slots
+    cols : (MB, NW, LW) int32     — local col in [0, K0), 0 in padding
+    rows : (MB, NW, LW) int32     — local row in [0, TM), 0 in padding
+    q    : (MB, NW)     int32     — real nnz count per slab (chunk-ceiled)
+    nse  : (MB, NW)     int32     — *true* nnz per slab (un-ceiled); slots
+                                    at position >= nse are structural padding
+                                    (autodiff masks their cotangents)
+    """
+
+    m: int
+    k: int
+    tm: int
+    k0: int
+    chunk: int
+    vals: np.ndarray
+    cols: np.ndarray
+    rows: np.ndarray
+    q: np.ndarray
+    nnz: int
+    nse: Optional[np.ndarray] = None
+
+    @property
+    def mb(self) -> int:
+        return self.vals.shape[0]
+
+    @property
+    def nw(self) -> int:
+        return self.vals.shape[1]
+
+    @property
+    def lw(self) -> int:
+        return self.vals.shape[2]
+
+    @property
+    def padding_fraction(self) -> float:
+        total = self.vals.size
+        return 1.0 - self.nnz / total if total else 0.0
+
+    @property
+    def slab_utilization(self) -> float:
+        """nnz / sum(q): how dense the *executed* slots are (the scheduler's
+        bubble metric — excludes the tail padding that q skips)."""
+        executed = int(self.q.sum())
+        return self.nnz / executed if executed else 1.0
+
+
+def pack_block_slabs(
+    a: SparseMatrix,
+    tm: int = 128,
+    k0: int = 4096,
+    chunk: int = 8,
+    lw_bucket: Optional[int] = None,
+    interleave: bool = True,
+    bucket: bool = False,
+) -> BlockSlabs:
+    """Pack A into (MB, NW, LW) slabs for the SpMM kernels.
+
+    ``interleave=True`` assigns rows to blocks by ``row mod MB`` (the paper's
+    Eq. 4 load-balancing) instead of contiguous blocks; the kernel writes its
+    C tile through the same permutation, applied by the wrapper. This evens
+    out per-slab nnz so LW (and thus padding) shrinks — measured by
+    ``padding_fraction``.
+
+    ``bucket=True`` rounds LW up to its power-of-two bucket
+    (:func:`bucket_geometry`) at allocation time, so similar-density
+    matrices share one compiled executable without a second padding copy
+    (the slab buffers are written once at their final size — this is the
+    packing hot path, and host-resident packing runs it on worker threads).
+    """
+    a = a.sorted_column_major()
+    a.validate()
+    m, k = a.shape
+    mb = cdiv(m, tm)
+    nw = cdiv(k, k0)
+
+    if interleave and mb > 1:
+        # Row permutation: new_row = (row % mb) * tm + row // mb  — PE-style
+        # mod-interleave lifted to blocks. Stored so the wrapper can undo it.
+        blk = a.row % mb
+        lrow = a.row // mb
+        eff_row = blk * tm + lrow
+    else:
+        blk = a.row // tm
+        lrow = a.row % tm
+        eff_row = a.row
+
+    win = a.col // k0
+    lcol = (a.col % k0).astype(np.int32)
+
+    # Count per (block, window) to size LW.
+    flat = blk.astype(np.int64) * nw + win
+    counts = np.bincount(flat, minlength=mb * nw).reshape(mb, nw)
+    lw_needed = int(counts.max()) if counts.size else 0
+    lw = max(chunk, cdiv(max(lw_needed, 1), chunk) * chunk)
+    if bucket:
+        lw = bucket_geometry(mb, nw, lw, 1)[2]
+    if lw_bucket is not None:
+        if lw_bucket < lw:
+            raise ValueError(f"lw_bucket {lw_bucket} < required {lw}")
+        lw = lw_bucket
+
+    vals = np.zeros((mb, nw, lw), np.float32)
+    cols = np.zeros((mb, nw, lw), np.int32)
+    rows = np.zeros((mb, nw, lw), np.int32)
+
+    # Stable order within slab: column-major (paper's processing order).
+    order = np.lexsort((lrow, lcol, win, blk))
+    fb, fw = blk[order], win[order]
+    offsets = np.zeros(mb * nw + 1, np.int64)
+    np.cumsum(counts.reshape(-1), out=offsets[1:])
+    slab_id = fb.astype(np.int64) * nw + fw
+    pos_in_slab = np.arange(order.size, dtype=np.int64) - offsets[slab_id]
+    vals[fb, fw, pos_in_slab] = a.val[order]
+    cols[fb, fw, pos_in_slab] = lcol[order]
+    rows[fb, fw, pos_in_slab] = lrow[order].astype(np.int32)
+
+    q = (cdiv_arr(counts, chunk) * chunk).astype(np.int32)
+    bs = BlockSlabs(
+        m=m, k=k, tm=tm, k0=k0, chunk=chunk,
+        vals=vals, cols=cols, rows=rows, q=q, nnz=a.nnz,
+        nse=counts.astype(np.int32),
+    )
+    bs.interleaved = bool(interleave and mb > 1)  # type: ignore[attr-defined]
+    return bs
+
+
+def cdiv_arr(a: np.ndarray, b: int) -> np.ndarray:
+    return -(-a // b)
+
+
+def bucket_geometry(mb: int, nw: int, lw: int, n: int) -> Tuple[int, int, int, int]:
+    """Round geometry up to power-of-two-ish buckets so distinct matrices
+    share one compiled executable (HFlex: compile once, run any SpMM)."""
+
+    def up(x: int) -> int:
+        if x <= 1:
+            return 1
+        return 1 << (x - 1).bit_length()
+
+    return up(mb), up(nw), up(lw), up(n)
