@@ -208,14 +208,18 @@ def phase_kernels_vs_plain(dev, mods):
 
 
 def byte_flop_bound(A, n, b_itemsize, out_itemsize, beta):
-    sum_q = int(A.data.q.sum().item())
+    """The least time the card could take: the larger of the bytes that
+    must move (each non-zero's value, column and row once; B, C and the
+    output once) over the HBM rate and the SpMM's flops over the fp32
+    rate. Chunk padding below ``q`` holds zeros an SpMM does not need, so
+    the slot bytes count the non-zeros, not the slots the kernels walk."""
     m, k = A.shape
-    nbytes = (12 * sum_q + k * n * b_itemsize + (m * n * 4 if beta else 0)
+    nbytes = (12 * A.nnz + k * n * b_itemsize + (m * n * 4 if beta else 0)
               + m * n * out_itemsize)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = 2 * A.nnz * n / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
-                                   else "operations"), sum_q
+                                   else "operations")
 
 
 def library_spmm(a, dev):
@@ -274,11 +278,12 @@ def run_case(label, a, A, n, expect, dev, mods):
     lib_y = torch.sparse.mm(csr, b)
     assert_close(ALPHA * lib_y + BETA * c, flat,
                  f"case {label}: torch.sparse.mm vs flat path")
-    bound, bound_by, sum_q = byte_flop_bound(A, n, 4, 4, BETA)
+    bound, bound_by = byte_flop_bound(A, n, 4, 4, BETA)
     block_slots = A.data.q.sum(dim=1)      # slots one row block walks
     row = dict(
         case=label, kernel=name, backend=resolved, m=m, k=k, nnz=a.nnz, n=n,
-        slab_geometry=list(A.data.geometry), sum_q=sum_q,
+        slab_geometry=list(A.data.geometry),
+        sum_q=int(A.data.q.sum().item()),
         block_slots_max=int(block_slots.max().item()),
         block_slots_mean=block_slots.float().mean().item(),
         row_nnz_max=int(np.bincount(a.row, minlength=m).max()),

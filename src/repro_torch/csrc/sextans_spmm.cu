@@ -21,14 +21,18 @@
 // column of the tile, so no atomics are needed and every output element is
 // summed in one fixed order on every run.
 //
-// What bounds it. Per slot the CTA reads one B row segment of TN values,
+// What bounds it. Per slot a CTA reads one B row segment of TN values,
 // coalesced across the warp, and does TN multiply-adds: about 2 flops per
-// 4 bytes of B, far below the card's flop-per-byte ridge, so the kernel is
-// bound by the B row gathers (bytes from L2 and HBM). B rows are reused
-// only through L2. To keep enough gathers in flight, each thread issues
-// kUnroll independent B loads before it applies them, in slot order.
-// Everything else (wgmma, TMA staging of B windows, persistent CTAs) is
-// left for later work.
+// 4 bytes of B, so bytes would bound a balanced matrix. Measured on the
+// H100 (PERF.md section 5), time instead follows the row block that walks
+// the most slots: the CTAs of a power-law hub block walk about 38 times
+// the mean block's slots one after another while the rest of the grid has
+// finished, and on an even banded matrix the kernel is latency-bound at
+// three CTAs per SM (70 KiB of shared memory each). What the design does: each thread issues
+// kUnroll independent B loads before it applies them in slot order, so
+// the gathers of one CTA overlap. Splitting a hub block over several CTAs
+// (with a fixed-order second pass), wgmma and TMA staging of B windows are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,13 +135,6 @@ int launch(const float* vals, const int* cols, const int* rows, const int* q,
 }
 
 }  // namespace
-
-// Shared memory one launch needs, so the caller can reject a tile that
-// does not fit before launching.
-extern "C" int sextans_spmm_smem_bytes(int tm, int tn) {
-  return tm * tn * static_cast<int>(sizeof(float)) +
-         kStage * static_cast<int>(sizeof(float) + 2 * sizeof(int));
-}
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // b_bf16 selects the bf16 instantiation for b and out, else f32.

@@ -22,12 +22,16 @@
 // fixed add order on every run.
 //
 // What bounds it. The useful work is 16 flops per slot against a 4..32
-// byte B row, so bytes bound it in principle; in this design every thread
-// also scans every staged slot, so a block spends TM shared-memory reads
-// per slot, and a slot's B row is loaded by one thread of its warp while
-// the other 31 wait. For the main path's row blocks (a few hundred slots
-// per window) that scan is cheap next to launch and HBM latency; a
-// redesign that partitions slots by row ahead of time is later work.
+// byte B row, so bytes bound it in principle. Measured on the H100
+// (PERF.md section 5), time instead follows the longest row: the thread
+// that owns a power-law hub row applies its slots one after another, each
+// a dependent B load and add, while every thread of the block scans every
+// staged slot. On the main path's power-law matrix one thread walks about
+// 18k slots in series and the kernel runs hundreds of times its byte
+// bound. What the design does: nothing yet beyond staging slot metadata
+// in shared memory; partitioning a block's slots by row ahead of time,
+// and splitting hub rows over several threads with a fixed-order
+// reduction, is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -2,11 +2,11 @@
 
 Each ``repro_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on first use into its own shared library under
-``build/repro_torch_kernels/`` at the checkout's root (or under
-``$REPRO_TORCH_BUILD_DIR``). A library's file name carries a hash of its
-sources and of the compiler flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs at import time: the
-CPU tests import every module on a machine with no ``nvcc``.
+``build/repro_torch_kernels/`` at the checkout's root. A library's file
+name carries a hash of its sources and of the compiler flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. Nothing
+here runs at import time: the CPU tests import every module on a machine
+with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -33,9 +33,6 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
     return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 

@@ -37,28 +37,33 @@ def spmm_dense_ref(a_dense, b, c, alpha=1.0, beta=0.0):
 
 
 def spmm_coo_ref(row, col, val, b, c, m, alpha=1.0, beta=0.0):
-    """COO SpMM via an ordered scatter-add over the rows."""
+    """COO SpMM: one gather, one ordered scatter-add over the rows, fused
+    epilogue. ``alpha``/``beta`` may be floats or 0-d tensors. Every SpMM
+    oracle and the flat path end here."""
     contrib = val.float()[:, None] * b[col.long()].float()
     acc = torch.zeros((m, b.shape[1]), dtype=torch.float32, device=b.device)
     ordered_scatter_add(acc, row.long(), contrib)
     return (alpha * acc + beta * c.float()).to(b.dtype)
 
 
-def spmm_slabs_ref(vals, cols, rows, q, b, c_in, k0, tm, alpha=1.0, beta=0.0):
+def spmm_slabs_ref(vals, cols, rows, q, b, c_in, k0, tm, alpha=1.0, beta=0.0,
+                   *, below_q=False):
     """Oracle on the *packed slab format*: what the kernels must produce on
     their padded (and, if interleaved, row-permuted) operands.
 
     vals/cols/rows: (MB, NW, LW); q: (MB, NW); b: (NW*K0, N) padded;
-    c_in: (MB*TM, N) padded. Every slot is summed, ``q`` included or not:
-    padding slots hold val == 0 and contribute nothing.
+    c_in: (MB*TM, N) padded. Every slot is summed (padding slots hold
+    val == 0 and contribute nothing), or with ``below_q`` only the slots
+    below ``q``, as the kernels walk them.
     """
     mb, nw, lw = vals.shape
-    bi = torch.arange(mb, device=vals.device).view(mb, 1, 1)
-    wi = torch.arange(nw, device=vals.device).view(1, nw, 1)
-    row = (bi * tm + rows.long()).reshape(-1)
-    col = (wi * k0 + cols.long()).reshape(-1)
-    contrib = vals.reshape(-1).float()[:, None] * b[col].float()
-    acc = torch.zeros((mb * tm, b.shape[1]), dtype=torch.float32,
-                      device=b.device)
-    ordered_scatter_add(acc, row, contrib)
-    return (alpha * acc + beta * c_in.float()).to(b.dtype)
+    dev = vals.device
+    if below_q:
+        live = torch.arange(lw, device=dev) < q.clamp(max=lw)[..., None]
+    else:
+        live = torch.ones(vals.shape, dtype=torch.bool, device=dev)
+    bi = torch.arange(mb, device=dev).view(mb, 1, 1).expand_as(live)[live]
+    wi = torch.arange(nw, device=dev).view(1, nw, 1).expand_as(live)[live]
+    return spmm_coo_ref(bi * tm + rows[live].long(),
+                        wi * k0 + cols[live].long(), vals[live], b, c_in,
+                        mb * tm, alpha, beta)

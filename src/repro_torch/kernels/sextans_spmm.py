@@ -21,10 +21,9 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import ordered_scatter_add
+from .ref import spmm_slabs_ref
 
-__all__ = ["LAUNCHES", "sextans_spmm_cuda", "sextans_spmm_torch",
-           "slab_spmm_plain"]
+__all__ = ["LAUNCHES", "sextans_spmm_cuda", "sextans_spmm_torch"]
 
 #: Kernel launches made by :func:`sextans_spmm_cuda` in this process.
 LAUNCHES = 0
@@ -33,36 +32,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _FUNCTIONS = {
     "sextans_spmm_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "sextans_spmm_smem_bytes": (_I, _I),
 }
 _SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
+_STAGE_SLOTS = 512            # kStage of csrc/sextans_spmm.cu
 _B_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def slab_spmm_plain(vals, cols, rows, q, b, c_in, ab, *, tm: int, k0: int):
-    """fp32 ``alpha * A @ b + beta * c_in`` over the slab slots below ``q``,
-    in the kernels' padded row layout: the arithmetic both Sextans kernels
-    do, written plainly (one gather, one ordered scatter-add)."""
-    mb, nw, lw = vals.shape
-    live = (torch.arange(lw, device=vals.device)
-            < q.clamp(max=lw)[..., None])
-    bi = torch.arange(mb, device=vals.device).view(mb, 1, 1).expand_as(live)
-    wi = torch.arange(nw, device=vals.device).view(1, nw, 1).expand_as(live)
-    row = bi[live] * tm + rows[live].long()
-    col = wi[live] * k0 + cols[live].long()
-    contrib = vals[live].float()[:, None] * b[col].float()
-    acc = torch.zeros((mb * tm, b.shape[1]), dtype=torch.float32,
-                      device=b.device)
-    ordered_scatter_add(acc, row, contrib)
-    ab = ab.float()
-    return (ab[0] * acc + ab[1] * c_in.float()).to(b.dtype)
 
 
 def sextans_spmm_torch(vals, cols, rows, q, b, c_in, ab, *, tm: int, k0: int,
                        tn: int = 128):
-    """Plain PyTorch version of the kernel on the same operands."""
+    """Plain PyTorch version of the kernel on the same operands: fp32, over
+    the slab slots below ``q``."""
     _check(vals, cols, rows, q, b, c_in, ab, tm=tm, k0=k0, tn=tn)
-    return slab_spmm_plain(vals, cols, rows, q, b, c_in, ab, tm=tm, k0=k0)
+    return spmm_slabs_ref(vals, cols, rows, q, b, c_in, k0, tm, ab[0], ab[1],
+                          below_q=True)
 
 
 def _check(vals, cols, rows, q, b, c_in, ab, *, tm, k0, tn):
@@ -118,11 +100,12 @@ def sextans_spmm_cuda(vals, cols, rows, q, b, c_in, ab, *, tm: int, k0: int,
     _check_cuda(ops, vals.device)
     if not 1 <= tn <= 1024:
         raise ValueError(f"tn={tn} threads per block is outside [1, 1024]")
-    lib = _build.load("sextans_spmm", _FUNCTIONS)
-    smem = lib.sextans_spmm_smem_bytes(tm, tn)
+    # The fp32 accumulator tile plus the staged slots (val, col, row).
+    smem = tm * tn * 4 + _STAGE_SLOTS * 12
     if smem > _SMEM_LIMIT:
         raise ValueError(f"a {tm}x{tn} fp32 tile needs {smem} bytes of shared "
                          f"memory, more than the {_SMEM_LIMIT} a block has")
+    lib = _build.load("sextans_spmm", _FUNCTIONS)
     mb, nw, lw = vals.shape
     npad = b.shape[1]
     out = torch.empty((mb * tm, npad), dtype=b.dtype, device=b.device)

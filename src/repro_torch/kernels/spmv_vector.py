@@ -19,7 +19,8 @@ import ctypes
 import torch
 
 from . import _build
-from .sextans_spmm import _check, _check_cuda, slab_spmm_plain
+from .ref import spmm_slabs_ref
+from .sextans_spmm import _check, _check_cuda
 
 __all__ = ["LAUNCHES", "sextans_spmv_cuda", "sextans_spmv_torch"]
 
@@ -41,9 +42,11 @@ def _check_spmv(vals, cols, rows, q, b, c_in, ab, *, tm, k0):
 
 
 def sextans_spmv_torch(vals, cols, rows, q, b, c_in, ab, *, tm: int, k0: int):
-    """Plain PyTorch version of the kernel on the same operands."""
+    """Plain PyTorch version of the kernel on the same operands: fp32, over
+    the slab slots below ``q``."""
     _check_spmv(vals, cols, rows, q, b, c_in, ab, tm=tm, k0=k0)
-    return slab_spmm_plain(vals, cols, rows, q, b, c_in, ab, tm=tm, k0=k0)
+    return spmm_slabs_ref(vals, cols, rows, q, b, c_in, k0, tm, ab[0], ab[1],
+                          below_q=True)
 
 
 def sextans_spmv_cuda(vals, cols, rows, q, b, c_in, ab, *, tm: int, k0: int):

@@ -30,7 +30,7 @@ from typing import Callable, Dict, FrozenSet, List, Optional
 import torch
 
 from repro_torch.core.partition import cdiv
-from repro_torch.kernels.ref import ordered_scatter_add
+from repro_torch.kernels.ref import spmm_coo_ref
 from repro_torch.kernels.sextans_spmm import sextans_spmm_cuda
 from repro_torch.kernels.spmv_vector import sextans_spmv_cuda
 
@@ -215,10 +215,7 @@ def _hflex_global_ids(d):
 def _hflex_flat_exec(vals, cols_g, rows_g, b, c, alpha, beta, m):
     """The flat SpMM body: one gather, one ordered scatter-add (the same
     order on every run, on the card too), fused epilogue."""
-    contrib = vals.float()[:, None] * b[cols_g].float()
-    acc = torch.zeros((m, b.shape[-1]), dtype=torch.float32, device=b.device)
-    ordered_scatter_add(acc, rows_g, contrib)
-    return (alpha * acc + beta * c.float()).to(b.dtype)
+    return spmm_coo_ref(rows_g, cols_g, vals, b, c, m, alpha, beta)
 
 
 def _padded_operands(d, b, c, width: int):
