@@ -10,14 +10,25 @@ the kernels are built for sm_90a). Phases:
 2. build both CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version on small shapes (both
    row layouts, two epilogues, bf16 b, empty windows), and ``spmm`` on
-   the card against the float64 numpy oracle;
+   the card against the float64 numpy oracle; each kernel's accumulate
+   mode against its plain version, a chain of accumulate launches over
+   window chunks plus the streaming epilogue against one resident launch
+   (bit for bit), and ``spmm``'s gradients on the card against the float64
+   numpy oracle;
 4. the main path, ``from_sparse_matrix(device="cuda")`` + ``spmm(backend=
    "auto")``, on three cases at the benchmark suite's full size. Each case
    zeroes the launch counters, drives the path, reads the counters, checks
    the result against the flat PyTorch path and the kernel against its
    plain version, times kernel, plain version and the library SpMM, and
    prints one JSON line;
-5. one JSON line for all kernels, then the card's name and power limit,
+5. the streaming path on the same matrix, packed on the host: cases (d)
+   and (e) run ``plan(..., device_bytes=)`` -> ``StreamingPlan.run``, each
+   zeroing the counters first, and check the result bit for bit against
+   the resident ``spmm`` with the same backend; they time the run, its
+   copies alone and its compute alone, and print one JSON line each. Case
+   (f) runs ``spmm_streaming`` forward (bit for bit against ``spmm``) and
+   backward (gradients within tolerance of ``spmm``'s);
+6. one JSON line for all kernels, then the card's name and power limit,
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line is printed.
@@ -47,6 +58,10 @@ ALPHA, BETA = 1.0, 0.5
 # tensor cores, at the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+
+# Packing this host's payload takes a few seconds; each streamed run moves
+# it over PCIe in window chunks, so the repetitions stay few.
+STREAM_REPS = 5
 
 SHAPE_SWEEP = [
     # (M, K, N, density, tm, k0, tn), as tests/test_kernels.py sweeps them
@@ -207,6 +222,108 @@ def phase_kernels_vs_plain(dev, mods):
           "max_abs_err": worst})
 
 
+def phase_accumulate_vs_plain(dev, mods):
+    """Each kernel's accumulate mode against its plain version, and a chain
+    of accumulate launches over window chunks, finished by the streaming
+    epilogue, against one resident launch, bit for bit."""
+    sp, tsparse, bk = mods["sp"], mods["sparse"], mods["backends"]
+    rng = np.random.default_rng(SEED)
+    worst = {name: 0.0 for name in KERNELS}
+    chains = 0
+    for (m, k, n, d, tm, k0, tn) in SHAPE_SWEEP:
+        a = tsparse.random_sparse(m, k, d, seed=m + k)
+        for interleave in (True, False):
+            A = sp.from_sparse_matrix(a, tm=tm, k0=k0, interleave=interleave,
+                                      device=dev)
+            for dt in (torch.float32, torch.bfloat16):
+                b = torch.from_numpy(rng.standard_normal(
+                    (k, n)).astype(np.float32)).to(dev, dt)
+                c = torch.from_numpy(rng.standard_normal(
+                    (m, n)).astype(np.float32)).to(dev)
+                tol = BF16_TOL if dt == torch.bfloat16 else RTOL
+                label = (f"sweep{m}x{k}x{n} interleave={interleave} "
+                         f"{str(dt)[6:]}")
+                for name in KERNELS:
+                    width = (-(-n // tn) * tn if name == "sextans_spmm"
+                             else -(-n // 8) * 8)
+                    vals, cols, rows, q, bp, cp, ab = kernel_operands(
+                        A, b, c, width, 0.5, 2.0, bk)
+                    kw = kernel_kwargs(name, A, tn)
+                    kern, plain = kernel_call(name, mods), plain_call(name,
+                                                                      mods)
+                    acc0 = torch.from_numpy(rng.standard_normal(
+                        tuple(cp.shape)).astype(np.float32)).to(dev)
+                    slabs = (vals, cols, rows, q, bp)
+                    got = kern(*slabs, acc0.clone(), accumulate=True, **kw)
+                    want = plain(*slabs, acc0.clone(), accumulate=True, **kw)
+                    torch.cuda.synchronize()
+                    check(got.dtype == torch.float32,
+                          f"{name} accumulate {label}: dtype {got.dtype}")
+                    err = assert_close(got, want,
+                                       f"{name} accumulate {label}", tol)
+                    worst[name] = max(worst[name], err)
+                    resident = kern(*slabs[:4], bp, cp, ab, **kw)
+                    for wc in (1, 2):
+                        acc = torch.zeros_like(cp)
+                        for w0 in range(0, A.data.nw, wc):
+                            w1 = min(A.data.nw, w0 + wc)
+                            kern(*(x[:, w0:w1].contiguous()
+                                   for x in slabs[:4]),
+                                 bp[w0 * k0:w1 * k0], acc, accumulate=True,
+                                 **kw)
+                        fin = bk.stream_finish(acc, cp, ab[0], ab[1], dt)
+                        torch.cuda.synchronize()
+                        check(torch.equal(fin, resident),
+                              f"{name} {label}: accumulate chain of "
+                              f"{wc}-window chunks + epilogue differs from "
+                              f"one resident launch")
+                        chains += 1
+    emit({"phase": "accumulate_vs_plain", "chains_bit_identical": chains,
+          "max_abs_err": worst})
+
+
+def phase_gradients(dev, mods):
+    """``spmm``'s gradients on the card against the float64 numpy dense
+    oracle at a small size, through both kernels."""
+    sp, tsparse, bk = mods["sp"], mods["sparse"], mods["backends"]
+    a = tsparse.power_law_sparse(300, 500, 6, seed=2)
+    dense = tsparse.to_dense(a).astype(np.float64)
+    worst = 0.0
+    for be, n in (("cuda", 20), ("spmv", 5)):
+        rng = np.random.default_rng(SEED)
+        b, c, w = (rng.standard_normal(s) for s in ((500, n), (300, n),
+                                                     (300, n)))
+        A = sp.from_sparse_matrix(a, tm=64, k0=64, device=dev)
+        v = A.values.detach().clone().requires_grad_()
+        leaves = [torch.tensor(x, dtype=torch.float32, device=dev,
+                               requires_grad=True)
+                  for x in (b, c, ALPHA, BETA)]
+        w_d = torch.tensor(w, dtype=torch.float32, device=dev)
+        y = sp.spmm(A.with_values(v), *leaves, backend=be)
+        first = torch.autograd.grad((y * w_d).sum(), [v, *leaves])
+        y = sp.spmm(A.with_values(v), *leaves, backend=be)
+        (y * w_d).sum().backward()
+        check(all(torch.equal(g, x.grad) for g, x in zip(first, [v, *leaves])),
+              f"spmm[{be}]: two backward runs differ")
+        bq = leaves[0].detach().double().cpu().numpy()   # b as f32 held it
+        d_dense = ALPHA * w @ bq.T
+        live, rows_g, cols_g = bk._hflex_global_ids(A.data)
+        want = dict(
+            values=d_dense[rows_g.cpu().numpy(), cols_g.cpu().numpy()],
+            b=ALPHA * dense.T @ w, c=BETA * w,
+            alpha=np.sum(w * (dense @ bq)), beta=np.sum(w * c))
+        got = dict(values=v.grad[live], b=leaves[0].grad,
+                   c=leaves[1].grad, alpha=leaves[2].grad,
+                   beta=leaves[3].grad)
+        check(bool((v.grad[~live] == 0).all()),
+              f"spmm[{be}]: non-zero gradient on a padding slot")
+        for key, ref in want.items():
+            worst = max(worst, assert_close(
+                got[key].cpu(), torch.from_numpy(np.asarray(ref)),
+                f"spmm[{be}] d {key} vs float64 oracle"))
+    emit({"phase": "gradients_vs_oracle", "max_abs_err": worst})
+
+
 def byte_flop_bound(A, n, b_itemsize, out_itemsize, beta):
     """The least time the card could take: the larger of the bytes that
     must move (each non-zero's value, column and row once; B, C and the
@@ -317,23 +434,280 @@ def phase_main_path(dev, mods):
     ]
     emit({"phase": "main_path",
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
-    return rows
+    del A_band
+    return rows, snap, A_snap
 
 
-def kernels_line(rows):
+def measure_h2d_gbps(dev, nbytes=1 << 30) -> float:
+    """Host-to-device rate of one large copy from pinned memory, on this
+    card, in GB/s: what the staging bound divides by."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ms = time_ms(lambda: dst.copy_(src, non_blocking=True), reps=5)
+    return nbytes / (ms * 1e-3) / 1e9
+
+
+def stream_step_bound(P):
+    """The least time the card could take for a run's window steps, summed
+    over the steps: per step, the chunk's non-zeros (12 B each), its block
+    of b and the C stripe read and written once over the HBM rate, against
+    2 * nnz * width flops over the fp32 rate. Returns (ms, bound_by)."""
+    d = P._d
+    nse = d.nse.sum(dim=0).tolist()            # live slots per window
+    t_bytes = t_flops = total = 0.0
+    for j, i in P._grid():
+        w0, w1 = i * P.window_chunk, min(d.nw, (i + 1) * P.window_chunk)
+        width = min(P.n, (j + 1) * P.n_tile) - j * P.n_tile
+        nnz = sum(nse[w0:w1])
+        rows_b = min(P.k, w1 * d.k0) - w0 * d.k0
+        tb = (12 * nnz + rows_b * width * 4 + 2 * P.m * width * 4
+              ) / HBM_BYTES_PER_S * 1e3
+        tf = 2 * nnz * width / FP32_FLOPS_PER_S * 1e3
+        t_bytes, t_flops = t_bytes + tb, t_flops + tf
+        total += max(tb, tf)
+    return total, "bytes" if t_bytes >= t_flops else "operations"
+
+
+def compute_only(P, b_h, c, dev, mods):
+    """The run's compute with every chunk already on the card: returns
+    (run_fn, steps_fn, plain_fn). ``run_fn`` does what ``run`` does minus
+    the staging; ``steps_fn`` only the accumulate launches; ``plain_fn``
+    the plain version of the first tile's steps."""
+    bk = mods["backends"]
+    name = next(nm for nm, kk in KERNELS.items()
+                if kk["backend"] == P.backend)
+    kern, plain = kernel_call(name, mods), plain_call(name, mods)
+    kw = dict(tm=P._d.tm, k0=P._d.k0)
+    if name == "sextans_spmm":
+        kw["tn"] = P.opts.get("tn", 128)
+    stream, grid = bk.get_backend(P.backend).stream, P._grid()
+    slabs, bchunks = {}, []
+    for j, i in grid:
+        h = {f: torch.empty(sh, dtype=dt) for f, (sh, dt) in
+             P._shapes.items()}
+        P._fill_chunk(h, i, j * P.n_tile, b_h, P._d.vals)
+        if i not in slabs:
+            slabs[i] = {f: x.to(dev) for f, x in h.items() if f != "b"}
+        bchunks.append(h["b"].to(dev))
+    c_tiles = [P._c_tile(c, j) for j in range(P.n_tiles)]
+    alpha = torch.tensor(ALPHA, device=dev)
+    beta = torch.tensor(BETA, device=dev)
+
+    def run_fn():
+        for t, (j, i) in enumerate(grid):
+            if i == 0:
+                acc = stream.init(P.a, P.n_tile, device=dev, **P.opts)
+            chunk = P._chunk_tensor({**slabs[i], "b": bchunks[t]})
+            acc = stream.step(chunk, bchunks[t], acc, **P.opts)
+            if i == P.steps - 1:
+                raw = stream.collect(P.a, acc, P.n_tile, **P.opts)
+                bk.stream_finish(raw, c_tiles[j], alpha, beta, P.dtype)
+
+    acc = stream.init(P.a, P.n_tile, device=dev, **P.opts)
+    # The kernels take b at the accumulator's padded width.
+    bpadded = []
+    for bc in bchunks:
+        bp = torch.zeros((bc.shape[0], acc.shape[1]), dtype=bc.dtype,
+                         device=dev)
+        bp[:, :bc.shape[1]] = bc
+        bpadded.append(bp)
+
+    def args(t, i):
+        s_ = slabs[i]
+        return (s_["vals"], s_["cols"], s_["rows"], s_["q"], bpadded[t], acc)
+
+    def steps_fn():
+        for t, (_, i) in enumerate(grid):
+            kern(*args(t, i), accumulate=True, **kw)
+
+    def plain_fn():
+        for t, (_, i) in enumerate(grid[:P.steps]):
+            plain(*args(t, i), accumulate=True, **kw)
+
+    return run_fn, steps_fn, plain_fn
+
+
+def run_stream_case(label, A_h, A_dev, n, budget, backend, dev, mods, gbps):
+    sp = mods["sp"]
+    rng = np.random.default_rng(SEED)
+    m, k = A_h.shape
+    b_h = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    c_h = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    b_d, c_d = b_h.to(dev), c_h.to(dev)
+    working = A_h.nbytes + (k * n + 2 * m * n) * 4
+    P = sp.plan(A_h, n, device_bytes=budget, backend=backend, stream=True)
+    check(isinstance(P, sp.StreamingPlan), f"case {label}: {P!r}")
+    name = next(nm for nm, kk in KERNELS.items() if kk["backend"] == backend)
+    emit({"phase": "stream_plan", "case": label, "plan": repr(P),
+          "device_bytes": budget, "resident_working_set": working,
+          "tier_by_budget": "streaming" if working > budget else "resident",
+          "n_tile": P.n_tile, "n_tiles": P.n_tiles,
+          "window_chunk": P.window_chunk, "steps": P.steps,
+          "window_dispatches": P.window_dispatches,
+          "chunk_payload_bytes": P.chunk_payload_bytes,
+          "peak_payload_bytes": P.peak_payload_bytes})
+
+    torch.cuda.synchronize()
+    for mod in (mods["spmm"], mods["spmv"]):
+        mod.LAUNCHES = mod.ACCUMULATE_LAUNCHES = 0
+    y = P.run(b_h, c_h, ALPHA, BETA)
+    torch.cuda.synchronize()
+    launches = {nm: {"resident": mods[key].LAUNCHES,
+                     "accumulate": mods[key].ACCUMULATE_LAUNCHES}
+                for nm, key in (("sextans_spmm", "spmm"),
+                                ("sextans_spmv", "spmv"))}
+    check(launches[name]["accumulate"] == P.window_dispatches,
+          f"case {label}: {launches[name]['accumulate']} accumulate launches "
+          f"of {name}, expected {P.window_dispatches}")
+    check(tuple(y.shape) == (m, n), f"case {label}: shape {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), f"case {label}: non-finite values")
+    y_res = sp.spmm(A_dev, b_d, c_d, ALPHA, BETA, backend=backend)
+    check(torch.equal(y.to(dev), y_res),
+          f"case {label}: streamed result differs from the resident one "
+          f"(max |diff| {(y.to(dev) - y_res).abs().max().item():.3e})")
+
+    stream_ms = time_ms(lambda: P.run(b_h, c_h, ALPHA, BETA),
+                        reps=STREAM_REPS, warmup=1)
+    resident_ms = time_ms(
+        lambda: sp.spmm(A_dev, b_d, c_d, ALPHA, BETA, backend=backend))
+    copy_ms = time_ms(lambda: P.stage_all(b_h), reps=STREAM_REPS, warmup=1)
+    run_fn, steps_fn, plain_fn = compute_only(
+        P, b_h, c_d if P.n_tiles == 1 else c_h, dev, mods)
+    compute_ms = time_ms(run_fn, reps=STREAM_REPS, warmup=1)
+    steps_ms = time_ms(steps_fn, reps=STREAM_REPS, warmup=1)
+    plain_ms = time_ms(plain_fn, reps=3, warmup=1)
+    bound, bound_by = stream_step_bound(P)
+    h2d = P.h2d_bytes
+    staging_bound_ms = h2d / (gbps * 1e9) * 1e3
+    row = dict(
+        case=label, kernel=name, backend=backend, m=m, k=k, n=n,
+        slab_geometry=list(A_h.data.geometry), payload_bytes=A_h.nbytes,
+        bit_identical_to_resident=True, launches=launches,
+        stream_ms=stream_ms, resident_ms=resident_ms,
+        copy_only_ms=copy_ms, compute_only_ms=compute_ms,
+        h2d_bytes=h2d, h2d_gbps=gbps, staging_bound_ms=staging_bound_ms,
+        overlap=1.0 - stream_ms / (copy_ms + compute_ms),
+        step_ms=steps_ms / P.window_dispatches,
+        step_plain_ms=plain_ms / P.steps,
+        step_bound_ms=bound / P.window_dispatches, step_bound_by=bound_by)
+    emit(row)
+    return row
+
+
+def run_streaming_grad_case(label, A_dev, n, dev, mods):
+    """``spmm_streaming`` forward and backward against ``spmm``'s."""
+    sp, bk = mods["sp"], mods["backends"]
+    rng = np.random.default_rng(SEED)
+    m, k = A_dev.shape
+    b, c = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+            for s in ((k, n), (m, n)))
+    w = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (m, n)).astype(np.float32)).to(dev)
+    backend = "cuda"
+
+    def forward(fn, **kw):
+        v = A_dev.values.detach().clone().requires_grad_()
+        leaves = [x.detach().clone().requires_grad_() for x in
+                  (b, c, torch.tensor(ALPHA, device=dev),
+                   torch.tensor(BETA, device=dev))]
+        y = fn(A_dev.with_values(v), *leaves, backend=backend, **kw)
+        return y, [v, *leaves]
+
+    def backward_ms(fn, **kw):
+        times = []
+        for _ in range(3):
+            y, leaves = forward(fn, **kw)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            y.backward(w)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), y.detach(), [x.grad for x in leaves]
+
+    grid = dict(window_chunk=8, n_tile=32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mods["spmm"].ACCUMULATE_LAUNCHES = mods["spmv"].ACCUMULATE_LAUNCHES = 0
+    s_ms, y_s, g_s = backward_ms(sp.spmm_streaming, **grid)
+    peak = torch.cuda.max_memory_allocated() - base
+    acc_launches = (mods["spmm"].ACCUMULATE_LAUNCHES
+                    + mods["spmv"].ACCUMULATE_LAUNCHES)
+    check(acc_launches >= 1, f"case {label}: no accumulate launch")
+    torch.cuda.reset_peak_memory_stats()
+    r_ms, y_r, g_r = backward_ms(sp.spmm)
+    peak_res = torch.cuda.max_memory_allocated() - base
+    check(torch.equal(y_s, y_r),
+          f"case {label}: spmm_streaming forward differs from spmm")
+    live = bk._hflex_global_ids(A_dev.data)[0]
+    check(bool((g_s[0][~live] == 0).all()),
+          f"case {label}: non-zero gradient on a padding slot")
+    errs = {}
+    for key, gs, gr in zip(("values", "b", "c", "alpha", "beta"), g_s, g_r):
+        errs[key] = assert_close(gs, gr, f"case {label}: d {key} "
+                                         f"streaming vs resident")
+    row = dict(case=label, backend=backend, n=n, **grid,
+               forward_bit_identical=True, grad_max_abs_err=errs,
+               accumulate_launches=acc_launches,
+               backward_ms=s_ms, resident_backward_ms=r_ms,
+               peak_device_bytes=peak, resident_peak_device_bytes=peak_res)
+    emit(row)
+    return row
+
+
+def phase_stream(snap, A_snap, dev, mods):
+    sp = mods["sp"]
+    t0 = time.perf_counter()
+    A_h = sp.from_sparse_matrix(snap, device="cpu", **PACK)
+    gbps = measure_h2d_gbps(dev)
+    emit({"phase": "stream_setup", "pack_host_s": time.perf_counter() - t0,
+          "h2d_gbps": gbps, "payload_bytes": A_h.nbytes})
+    rows = [
+        run_stream_case("d:snap_pl_120000", A_h, A_snap, 512, 4 << 30,
+                        "cuda", dev, mods, gbps),
+        run_stream_case("e:snap_pl_120000", A_h, A_snap, 8, 1 << 30,
+                        "spmv", dev, mods, gbps),
+    ]
+    grad = run_streaming_grad_case("f:snap_pl_120000", A_snap, 64, dev, mods)
+    return rows, grad
+
+
+def kernels_line(rows, stream_rows):
+    """One entry per kernel. ``launches`` counts both modes over every
+    main-path case; ``ms``/``plain_ms``/``bound_ms`` are the resident mode's
+    on its slowest case, ``accumulate_*`` the stream step's, per window
+    step, on its stream case."""
     out = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
+        streamed = [r for r in stream_rows if r["kernel"] == name]
         check(mine, f"no main-path case ran {name}")
+        check(streamed, f"no stream case ran {name}")
         main = max(mine, key=lambda r: r["kernel_ms"])
+        st = streamed[0]
+        by_mode = {
+            "resident": sum(r["launches"] for r in mine) + sum(
+                r["launches"][name]["resident"] for r in stream_rows),
+            "accumulate": sum(r["launches"][name]["accumulate"]
+                              for r in stream_rows)}
+        check(by_mode["accumulate"] >= 1,
+              f"the main path launched {name}'s accumulate mode no time")
         out.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"],
-            launches=sum(r["launches"] for r in mine),
+            launches=sum(by_mode.values()), launches_by_mode=by_mode,
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main["kernel_ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], case=main["case"]))
+            library_ms=main["library_ms"], case=main["case"],
+            accumulate_ms=st["step_ms"],
+            accumulate_plain_ms=st["step_plain_ms"],
+            accumulate_bound_ms=st["step_bound_ms"],
+            accumulate_bound_by=st["step_bound_by"],
+            accumulate_case=st["case"]))
     return {"kernels": out}
 
 
@@ -371,8 +745,11 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
         phase_kernels_vs_plain(dev, mods)
-        rows = phase_main_path(dev, mods)
-        emit(kernels_line(rows))
+        phase_accumulate_vs_plain(dev, mods)
+        phase_gradients(dev, mods)
+        rows, snap, A_snap = phase_main_path(dev, mods)
+        stream_rows, _ = phase_stream(snap, A_snap, dev, mods)
+        emit(kernels_line(rows, stream_rows))
         print(card_line(), flush=True)
     except Exception:                      # noqa: BLE001 - report, then fail
         traceback.print_exc()

@@ -1,7 +1,9 @@
-// Sextans SpMM on Hopper: out = alpha * A @ B + beta * C_in over HFlex slabs.
+// Sextans SpMM on Hopper: out = alpha * A @ B + beta * C_in over HFlex slabs,
+// or, in accumulate mode, acc += A @ B on a carried f32 accumulator.
 //
 // Replaces src/repro/kernels/sextans_spmm.py:_kernel / sextans_spmm_pallas
-// (one matrix, gather="gather", accumulate=False).
+// (one matrix, gather="gather"), both modes: accumulate=False (resident)
+// and accumulate=True (the out-of-core stream step).
 //
 // Operands are those of the TPU kernel, already padded by the caller:
 //   vals f32, cols i32, rows i32 : (MB, NW, LW) slab slots
@@ -10,6 +12,12 @@
 //   c_in f32                     : (MB*TM, NPAD), in the slabs' row layout
 //   ab   f32                     : (2,) device buffer [alpha, beta]
 //   out  b's type                : (MB*TM, NPAD)
+// In accumulate mode c_in is the f32 accumulator in this same padded,
+// interleaved layout, ab is not read, and out is c_in itself: each CTA
+// seeds its tile from c_in and writes the raw f32 tile back in place, with
+// no epilogue. Aliasing is safe because a CTA reads every element of its
+// own tile before it writes any, and no other CTA touches that tile; so
+// c_in and out carry no __restrict__.
 //
 // Design. One CTA owns the TM x TN output tile (m, n-tile) and walks the
 // windows w = 0..NW-1 in order: the loop takes the place of the TPU grid's
@@ -19,7 +27,12 @@
 // acc[row][t] += val * B[w*K0 + col][n0 + t], with the fp32 accumulator
 // tile in shared memory (TM*TN*4 bytes). Each thread touches only its own
 // column of the tile, so no atomics are needed and every output element is
-// summed in one fixed order on every run.
+// summed in one fixed order on every run. A chain of accumulate launches
+// over consecutive window chunks therefore adds exactly what one resident
+// launch adds. The epilogue rounds each product and the sum on its own
+// (__fmul_rn, __fadd_rn, never contracted into an FMA), as PyTorch's
+// separate multiply, multiply and add do: a streamed result, finished by
+// PyTorch, is then bit-identical to a resident one.
 //
 // What bounds it. Per slot a CTA reads one B row segment of TN values,
 // coalesced across the warp, and does TN multiply-adds: about 2 flops per
@@ -28,11 +41,16 @@
 // the most slots: the CTAs of a power-law hub block walk about 38 times
 // the mean block's slots one after another while the rest of the grid has
 // finished, and on an even banded matrix the kernel is latency-bound at
-// three CTAs per SM (70 KiB of shared memory each). What the design does: each thread issues
-// kUnroll independent B loads before it applies them in slot order, so
-// the gathers of one CTA overlap. Splitting a hub block over several CTAs
-// (with a fixed-order second pass), wgmma and TMA staging of B windows are
-// later work.
+// three CTAs per SM (70 KiB of shared memory each). A stream step
+// (accumulate mode) also reads and writes the whole f32 accumulator once:
+// on the H100 at PERF.md case (d), one window of 938 row blocks against a
+// 128-column tile, a step took 0.098 ms against a 0.037 ms bound that is
+// almost all that 123 MB round trip. The streamed run as a whole is bound
+// by staging on the host, not by this kernel (PERF.md section 5). What the
+// design does: each thread issues kUnroll independent B loads before it
+// applies them in slot order, so the gathers of one CTA overlap.
+// Splitting a hub block over several CTAs (with a fixed-order second
+// pass), wgmma and TMA staging of B windows are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,21 +60,23 @@ namespace {
 
 constexpr int kStage = 512;   // slots staged into shared memory per pass
 constexpr int kUnroll = 8;    // B loads in flight per thread
+constexpr int kEpilogue = 8;  // c_in loads in flight per thread, epilogue
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename T>
+// OutT is T in resident mode and float in accumulate mode (out == c_in).
+template <typename T, typename OutT, bool kAccumulate>
 __global__ void sextans_spmm_kernel(const float* __restrict__ vals,
                                     const int* __restrict__ cols,
                                     const int* __restrict__ rows,
                                     const int* __restrict__ q,
                                     const T* __restrict__ b,
-                                    const float* __restrict__ c_in,
+                                    const float* c_in,
                                     const float* __restrict__ ab,
-                                    T* __restrict__ out,
+                                    OutT* out,
                                     int nw, int lw, int tm, int k0, int npad) {
   extern __shared__ float smem[];
   const int tn = blockDim.x;
@@ -68,7 +88,10 @@ __global__ void sextans_spmm_kernel(const float* __restrict__ vals,
   int* s_col = reinterpret_cast<int*>(s_val + kStage);
   int* s_row = s_col + kStage;
 
-  for (int r = 0; r < tm; ++r) acc[r * tn + t] = 0.f;
+  const int64_t tile0 = static_cast<int64_t>(m) * tm * npad + n0 + t;
+  for (int r = 0; r < tm; ++r)
+    acc[r * tn + t] =
+        kAccumulate ? c_in[tile0 + static_cast<int64_t>(r) * npad] : 0.f;
 
   const T* b_col = b + n0 + t;
   for (int w = 0; w < nw; ++w) {
@@ -107,22 +130,39 @@ __global__ void sextans_spmm_kernel(const float* __restrict__ vals,
     }
   }
 
+  if (kAccumulate) {
+    for (int r = 0; r < tm; ++r)
+      out[tile0 + static_cast<int64_t>(r) * npad] = acc[r * tn + t];
+    return;
+  }
   const float alpha = ab[0];
   const float beta = ab[1];
-  for (int r = 0; r < tm; ++r) {
-    const int64_t o = (static_cast<int64_t>(m) * tm + r) * npad + n0 + t;
-    store(out + o, alpha * acc[r * tn + t] + beta * c_in[o]);
+  // c_in and out carry no __restrict__, so the compiler keeps each load
+  // behind the previous store; loading kEpilogue rows before storing any
+  // keeps that many loads in flight.
+  for (int r0 = 0; r0 < tm; r0 += kEpilogue) {
+    float cv[kEpilogue];
+#pragma unroll
+    for (int u = 0; u < kEpilogue; ++u)
+      if (r0 + u < tm)
+        cv[u] = c_in[tile0 + static_cast<int64_t>(r0 + u) * npad];
+#pragma unroll
+    for (int u = 0; u < kEpilogue; ++u)
+      if (r0 + u < tm)
+        store(out + tile0 + static_cast<int64_t>(r0 + u) * npad,
+              __fadd_rn(__fmul_rn(alpha, acc[(r0 + u) * tn + t]),
+                        __fmul_rn(beta, cv[u])));
   }
 }
 
-template <typename T>
+template <typename T, typename OutT, bool kAccumulate>
 int launch(const float* vals, const int* cols, const int* rows, const int* q,
            const void* b, const float* c_in, const float* ab, void* out,
            int mb, int nw, int lw, int tm, int k0, int npad, int tn,
            cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(tm) * tn * sizeof(float) +
                       kStage * (sizeof(float) + 2 * sizeof(int));
-  auto kernel = sextans_spmm_kernel<T>;
+  auto kernel = sextans_spmm_kernel<T, OutT, kAccumulate>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -130,25 +170,36 @@ int launch(const float* vals, const int* cols, const int* rows, const int* q,
   dim3 grid(mb, npad / tn);
   kernel<<<grid, tn, smem, stream>>>(vals, cols, rows, q,
                                      static_cast<const T*>(b), c_in, ab,
-                                     static_cast<T*>(out), nw, lw, tm, k0, npad);
+                                     static_cast<OutT*>(out), nw, lw, tm, k0,
+                                     npad);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// b_bf16 selects the bf16 instantiation for b and out, else f32.
+// b_bf16 selects the bf16 instantiation for b (and, resident, for out),
+// else f32. accumulate selects the stream step: out must be c_in, and ab
+// may be null.
 extern "C" int sextans_spmm_launch(const float* vals, const int* cols,
                                    const int* rows, const int* q,
                                    const void* b, const float* c_in,
                                    const float* ab, void* out,
                                    int mb, int nw, int lw, int tm, int k0,
                                    int npad, int tn, int b_bf16,
-                                   void* stream) {
+                                   int accumulate, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (accumulate) {
+    if (b_bf16)
+      return launch<bf16, float, true>(vals, cols, rows, q, b, c_in, ab, out,
+                                       mb, nw, lw, tm, k0, npad, tn, s);
+    return launch<float, float, true>(vals, cols, rows, q, b, c_in, ab, out,
+                                      mb, nw, lw, tm, k0, npad, tn, s);
+  }
   if (b_bf16)
-    return launch<__nv_bfloat16>(vals, cols, rows, q, b, c_in, ab, out, mb, nw,
-                                 lw, tm, k0, npad, tn, s);
-  return launch<float>(vals, cols, rows, q, b, c_in, ab, out, mb, nw, lw, tm,
-                       k0, npad, tn, s);
+    return launch<bf16, bf16, false>(vals, cols, rows, q, b, c_in, ab, out, mb,
+                                     nw, lw, tm, k0, npad, tn, s);
+  return launch<float, float, false>(vals, cols, rows, q, b, c_in, ab, out, mb,
+                                     nw, lw, tm, k0, npad, tn, s);
 }

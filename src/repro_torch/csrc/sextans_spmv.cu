@@ -1,8 +1,10 @@
 // Skinny-N Sextans lane on Hopper: out = alpha * A @ B + beta * C_in for a
-// handful of dense columns, over HFlex slabs.
+// handful of dense columns, over HFlex slabs, or, in accumulate mode,
+// acc += A @ B on a carried f32 accumulator.
 //
 // Replaces src/repro/kernels/spmv_vector.py:_kernel / sextans_spmv_pallas
-// (one matrix, gather="gather", accumulate=False).
+// (one matrix, gather="gather"), both modes: accumulate=False (resident)
+// and accumulate=True (the out-of-core stream step).
 //
 // Operands are those of the TPU kernel, already padded by the caller:
 //   vals f32, cols i32, rows i32 : (MB, NW, LW) slab slots
@@ -11,6 +13,11 @@
 //   c_in f32                     : (MB*TM, NV), in the slabs' row layout
 //   ab   f32                     : (2,) device buffer [alpha, beta]
 //   out  b's type                : (MB*TM, NV)
+// In accumulate mode c_in is the f32 accumulator in this same padded,
+// interleaved layout, ab is not read, and out is c_in itself: thread r
+// seeds its 8 register accumulators from its own row of c_in and writes
+// them back raw, with no epilogue. No other thread reads or writes that
+// row segment, so the aliasing is safe; c_in and out carry no __restrict__.
 //
 // Design. One CTA per (row block m, group of 8 columns); for N <= 8 that
 // is one CTA per row block, and each B window is read once by it. The CTA
@@ -19,7 +26,11 @@
 // threads, so thread r owns output row r of the block instead and holds
 // its 8 accumulators in registers. Every thread walks all staged slots in
 // slot order and applies only those of its own row: no atomics, and one
-// fixed add order on every run.
+// fixed add order on every run, so a chain of accumulate launches over
+// window chunks adds exactly what one resident launch adds. The epilogue
+// rounds each product and the sum on its own (__fmul_rn, __fadd_rn), as
+// PyTorch's separate operations do, so a streamed result finished by
+// PyTorch is bit-identical to a resident one.
 //
 // What bounds it. The useful work is 16 flops per slot against a 4..32
 // byte B row, so bytes bound it in principle. Measured on the H100
@@ -28,9 +39,12 @@
 // a dependent B load and add, while every thread of the block scans every
 // staged slot. On the main path's power-law matrix one thread walks about
 // 18k slots in series and the kernel runs hundreds of times its byte
-// bound. What the design does: nothing yet beyond staging slot metadata
-// in shared memory; partitioning a block's slots by row ahead of time,
-// and splitting hub rows over several threads with a fixed-order
+// bound. A stream step (accumulate mode) walks one window chunk of every
+// block, and the hub row's slots in that chunk set its time the same way:
+// on the H100 at PERF.md case (e), two windows per step, 0.27 ms against a
+// 0.0025 ms bound. What the design does: nothing yet beyond staging slot
+// metadata in shared memory; partitioning a block's slots by row ahead of
+// time, and splitting hub rows over several threads with a fixed-order
 // reduction, is later work.
 
 #include <cuda_bf16.h>
@@ -47,15 +61,16 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename T>
+// OutT is T in resident mode and float in accumulate mode (out == c_in).
+template <typename T, typename OutT, bool kAccumulate>
 __global__ void sextans_spmv_kernel(const float* __restrict__ vals,
                                     const int* __restrict__ cols,
                                     const int* __restrict__ rows,
                                     const int* __restrict__ q,
                                     const T* __restrict__ b,
-                                    const float* __restrict__ c_in,
+                                    const float* c_in,
                                     const float* __restrict__ ab,
-                                    T* __restrict__ out,
+                                    OutT* out,
                                     int nw, int lw, int tm, int k0, int nv) {
   __shared__ float s_val[kStage];
   __shared__ int s_col[kStage];
@@ -63,9 +78,10 @@ __global__ void sextans_spmv_kernel(const float* __restrict__ vals,
   const int r = threadIdx.x;          // this thread's row of the block
   const int m = blockIdx.x;
   const int v0 = blockIdx.y * kCols;
+  const int64_t o = (static_cast<int64_t>(m) * tm + r) * nv + v0;
   float acc[kCols];
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kCols; ++i) acc[i] = kAccumulate ? c_in[o + i] : 0.f;
 
   for (int w = 0; w < nw; ++w) {
     const int count = min(q[m * nw + w], lw);
@@ -97,40 +113,61 @@ __global__ void sextans_spmv_kernel(const float* __restrict__ vals,
     }
   }
 
+  if (kAccumulate) {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) out[o + i] = acc[i];
+    return;
+  }
   const float alpha = ab[0];
   const float beta = ab[1];
-  const int64_t o = (static_cast<int64_t>(m) * tm + r) * nv + v0;
+  // c_in and out carry no __restrict__: load the row segment before
+  // storing any of it, so the loads are not kept behind the stores.
+  float cv[kCols];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) cv[i] = c_in[o + i];
 #pragma unroll
   for (int i = 0; i < kCols; ++i)
-    store(out + o + i, alpha * acc[i] + beta * c_in[o + i]);
+    store(out + o + i, __fadd_rn(__fmul_rn(alpha, acc[i]),
+                                 __fmul_rn(beta, cv[i])));
 }
 
-template <typename T>
+template <typename T, typename OutT, bool kAccumulate>
 int launch(const float* vals, const int* cols, const int* rows, const int* q,
            const void* b, const float* c_in, const float* ab, void* out,
            int mb, int nw, int lw, int tm, int k0, int nv,
            cudaStream_t stream) {
   dim3 grid(mb, nv / kCols);
-  sextans_spmv_kernel<T><<<grid, tm, 0, stream>>>(
+  sextans_spmv_kernel<T, OutT, kAccumulate><<<grid, tm, 0, stream>>>(
       vals, cols, rows, q, static_cast<const T*>(b), c_in, ab,
-      static_cast<T*>(out), nw, lw, tm, k0, nv);
+      static_cast<OutT*>(out), nw, lw, tm, k0, nv);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// b_bf16 selects the bf16 instantiation for b and out, else f32.
+// b_bf16 selects the bf16 instantiation for b (and, resident, for out),
+// else f32. accumulate selects the stream step: out must be c_in, and ab
+// may be null.
 extern "C" int sextans_spmv_launch(const float* vals, const int* cols,
                                    const int* rows, const int* q,
                                    const void* b, const float* c_in,
                                    const float* ab, void* out,
                                    int mb, int nw, int lw, int tm, int k0,
-                                   int nv, int b_bf16, void* stream) {
+                                   int nv, int b_bf16, int accumulate,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (accumulate) {
+    if (b_bf16)
+      return launch<bf16, float, true>(vals, cols, rows, q, b, c_in, ab, out,
+                                       mb, nw, lw, tm, k0, nv, s);
+    return launch<float, float, true>(vals, cols, rows, q, b, c_in, ab, out,
+                                      mb, nw, lw, tm, k0, nv, s);
+  }
   if (b_bf16)
-    return launch<__nv_bfloat16>(vals, cols, rows, q, b, c_in, ab, out, mb, nw,
-                                 lw, tm, k0, nv, s);
-  return launch<float>(vals, cols, rows, q, b, c_in, ab, out, mb, nw, lw, tm,
-                       k0, nv, s);
+    return launch<bf16, bf16, false>(vals, cols, rows, q, b, c_in, ab, out, mb,
+                                     nw, lw, tm, k0, nv, s);
+  return launch<float, float, false>(vals, cols, rows, q, b, c_in, ab, out, mb,
+                                     nw, lw, tm, k0, nv, s);
 }

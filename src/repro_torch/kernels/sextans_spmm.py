@@ -3,12 +3,18 @@ PyTorch version.
 
 ``sextans_spmm_cuda`` launches ``csrc/sextans_spmm.cu``, the Hopper port of
 the TPU kernel ``repro/kernels/sextans_spmm.py:sextans_spmm_pallas`` (one
-matrix, row gather, no streaming accumulation). Both take the same padded
-operands: slabs ``(MB, NW, LW)``, trip counts ``q`` ``(MB, NW)``, ``b``
-``(NW*K0, NPAD)`` with ``NPAD`` a multiple of ``tn``, ``c_in``
-``(MB*TM, NPAD)`` in the slabs' row layout, and ``ab = [alpha, beta]`` as
-an f32 tensor, so that sweeping the epilogue never syncs the host. The
-result has b's dtype.
+matrix, row gather). Both take the same padded operands: slabs
+``(MB, NW, LW)``, trip counts ``q`` ``(MB, NW)``, ``b`` ``(NW*K0, NPAD)``
+with ``NPAD`` a multiple of ``tn``, ``c_in`` ``(MB*TM, NPAD)`` in the
+slabs' row layout, and ``ab = [alpha, beta]`` as an f32 tensor, so that
+sweeping the epilogue never syncs the host. The result has b's dtype.
+
+``accumulate=True`` is the out-of-core stream step: ``c_in`` is the
+carried f32 accumulator, the slots are added onto it **in place** (the
+counterpart of the reference's donated accumulator), and it is returned
+raw, f32 whatever b's dtype, with no epilogue; ``ab`` is not read and may
+be ``None``. A chain of such calls over consecutive window chunks adds
+exactly what one resident call adds.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises.
@@ -23,31 +29,38 @@ import torch
 from . import _build
 from .ref import spmm_slabs_ref
 
-__all__ = ["LAUNCHES", "sextans_spmm_cuda", "sextans_spmm_torch"]
+__all__ = ["LAUNCHES", "ACCUMULATE_LAUNCHES", "sextans_spmm_cuda",
+           "sextans_spmm_torch"]
 
-#: Kernel launches made by :func:`sextans_spmm_cuda` in this process.
+#: Resident-mode kernel launches made by :func:`sextans_spmm_cuda` in this
+#: process.
 LAUNCHES = 0
+#: Accumulate-mode (stream step) kernel launches.
+ACCUMULATE_LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FUNCTIONS = {
     "sextans_spmm_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 _SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
 _STAGE_SLOTS = 512            # kStage of csrc/sextans_spmm.cu
 _B_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def sextans_spmm_torch(vals, cols, rows, q, b, c_in, ab, *, tm: int, k0: int,
-                       tn: int = 128):
+def sextans_spmm_torch(vals, cols, rows, q, b, c_in, ab=None, *, tm: int,
+                       k0: int, tn: int = 128, accumulate: bool = False):
     """Plain PyTorch version of the kernel on the same operands: fp32, over
-    the slab slots below ``q``."""
-    _check(vals, cols, rows, q, b, c_in, ab, tm=tm, k0=k0, tn=tn)
-    return spmm_slabs_ref(vals, cols, rows, q, b, c_in, k0, tm, ab[0], ab[1],
-                          below_q=True)
+    the slab slots below ``q``; with ``accumulate``, onto ``c_in`` in
+    place."""
+    _check(vals, cols, rows, q, b, c_in, ab, tm=tm, k0=k0, tn=tn,
+           accumulate=accumulate)
+    alpha, beta = (None, None) if accumulate else (ab[0], ab[1])
+    return spmm_slabs_ref(vals, cols, rows, q, b, c_in, k0, tm, alpha, beta,
+                          below_q=True, accumulate=accumulate)
 
 
-def _check(vals, cols, rows, q, b, c_in, ab, *, tm, k0, tn):
+def _check(vals, cols, rows, q, b, c_in, ab, *, tm, k0, tn, accumulate):
     if vals.dim() != 3:
         raise ValueError(f"vals must be (MB, NW, LW), got {tuple(vals.shape)}")
     mb, nw, lw = vals.shape
@@ -72,7 +85,9 @@ def _check(vals, cols, rows, q, b, c_in, ab, *, tm, k0, tn):
     if tuple(c_in.shape) != (mb * tm, b.shape[1]):
         raise ValueError(f"c_in must be ({mb * tm}, {b.shape[1]}), got "
                          f"{tuple(c_in.shape)}")
-    if ab.dtype != torch.float32 or tuple(ab.shape) != (2,):
+    if accumulate:
+        return
+    if ab is None or ab.dtype != torch.float32 or tuple(ab.shape) != (2,):
         raise ValueError("ab must be a float32 tensor [alpha, beta]")
 
 
@@ -85,18 +100,20 @@ def _check_cuda(tensors, device):
             raise ValueError("operands must be contiguous")
 
 
-def sextans_spmm_cuda(vals, cols, rows, q, b, c_in, ab, *, tm: int, k0: int,
-                      tn: int = 128):
+def sextans_spmm_cuda(vals, cols, rows, q, b, c_in, ab=None, *, tm: int,
+                      k0: int, tn: int = 128, accumulate: bool = False):
     """Launch the Sextans SpMM kernel (see the module docstring for the
-    operands). CPU tensors take :func:`sextans_spmm_torch`."""
-    global LAUNCHES
+    operands and ``accumulate``). CPU tensors take
+    :func:`sextans_spmm_torch`."""
+    global LAUNCHES, ACCUMULATE_LAUNCHES
     if vals.device.type == "cpu":
-        return sextans_spmm_torch(vals, cols, rows, q, b, c_in, ab,
-                                  tm=tm, k0=k0, tn=tn)
+        return sextans_spmm_torch(vals, cols, rows, q, b, c_in, ab, tm=tm,
+                                  k0=k0, tn=tn, accumulate=accumulate)
     if vals.device.type != "cuda":
         raise ValueError(f"no Sextans kernel for device {vals.device}")
-    _check(vals, cols, rows, q, b, c_in, ab, tm=tm, k0=k0, tn=tn)
-    ops = (vals, cols, rows, q, b, c_in, ab)
+    _check(vals, cols, rows, q, b, c_in, ab, tm=tm, k0=k0, tn=tn,
+           accumulate=accumulate)
+    ops = (vals, cols, rows, q, b, c_in) + (() if accumulate else (ab,))
     _check_cuda(ops, vals.device)
     if not 1 <= tn <= 1024:
         raise ValueError(f"tn={tn} threads per block is outside [1, 1024]")
@@ -108,16 +125,21 @@ def sextans_spmm_cuda(vals, cols, rows, q, b, c_in, ab, *, tm: int, k0: int,
     lib = _build.load("sextans_spmm", _FUNCTIONS)
     mb, nw, lw = vals.shape
     npad = b.shape[1]
-    out = torch.empty((mb * tm, npad), dtype=b.dtype, device=b.device)
+    out = (c_in if accumulate else
+           torch.empty((mb * tm, npad), dtype=b.dtype, device=b.device))
     if out.numel() == 0:
         return out
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = lib.sextans_spmm_launch(
-            *(x.data_ptr() for x in ops), out.data_ptr(),
+            *(x.data_ptr() for x in ops[:6]),
+            None if accumulate else ab.data_ptr(), out.data_ptr(),
             mb, nw, lw, tm, k0, npad, tn, int(b.dtype == torch.bfloat16),
-            stream)
+            int(accumulate), stream)
     if err:
         raise RuntimeError(f"sextans_spmm launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if accumulate:
+        ACCUMULATE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out

@@ -4,6 +4,8 @@
     >>> A = sp.from_sparse_matrix(a)               # pack -> cuda
     >>> y = sp.spmm(A, b, c, alpha=1.0, beta=0.5)  # Sextans kernel
     >>> y = A @ b                                  # operator sugar
+    >>> P = sp.plan(A_host, n, device_bytes=4 << 30)  # out of core if needed
+    >>> y = P.run(b, c, 1.0, 0.5)
 
 ``device="cpu"`` keeps the packed tensor on the host, where the kernel
 backends run their kernels' plain versions.
@@ -12,14 +14,23 @@ backends run their kernels' plain versions.
 from .backends import (
     SKINNY_N_MAX,
     Backend,
+    StreamOps,
     get_backend,
     list_backends,
     register_backend,
     resolve_backend,
     set_auto_policy,
     skinny_n_max,
+    stream_finish,
 )
-from .ops import spmm, spmm_raw
+from .ops import spmm, spmm_raw, spmm_streaming
+from .plan import (
+    PLAN_STATS,
+    SpmmPlan,
+    StreamingPlan,
+    device_memory_budget,
+    plan,
+)
 from .tensor import (
     Format,
     PackedSpMM,
@@ -37,12 +48,20 @@ __all__ = [
     "PackedSpMM",
     "spmm",
     "spmm_raw",
+    "spmm_streaming",
+    "plan",
+    "SpmmPlan",
+    "StreamingPlan",
+    "PLAN_STATS",
+    "device_memory_budget",
     "from_coo",
     "from_dense",
     "from_reference_arrays",
     "from_sparse_matrix",
     "pack_hflex",
     "Backend",
+    "StreamOps",
+    "stream_finish",
     "register_backend",
     "get_backend",
     "list_backends",

@@ -19,6 +19,8 @@ are registered by name:
                    :func:`set_auto_policy`).
 
 On a CPU tensor the kernel backends run their kernels' plain versions.
+Every built-in backend also carries out-of-core streaming hooks
+(:class:`StreamOps`), which ``spmm_streaming`` and ``StreamingPlan`` walk.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from .tensor import Format, SparseTensor
 
 __all__ = [
     "Backend",
+    "StreamOps",
+    "stream_finish",
     "register_backend",
     "get_backend",
     "list_backends",
@@ -65,11 +69,50 @@ def skinny_n_max() -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class StreamOps:
+    """Out-of-core K0-window streaming hooks of a backend.
+
+    A streamed run carries a raw f32 accumulator in the backend's layout
+    across window-chunk steps and applies the alpha/beta epilogue once at
+    the end. That is the only split that keeps every output element's add
+    sequence that of the resident run, so the result is bit-identical:
+
+    * ``init(a, n, *, device=None, **opts) -> acc``: a zero accumulator
+      for a dense width ``n`` on ``device`` (A's device by default), f32,
+      in the backend's layout: logical ``(M, n)`` for ``torch``, padded and
+      row-interleaved kernel layout for ``cuda``/``spmv``.
+    * ``step(a_chunk, b_chunk, acc, **opts) -> acc``: add one window
+      chunk (``a_chunk = a.windows(w0, w1)`` or a staged chunk of the
+      same form, ``b_chunk`` the matching rows of ``b``) onto ``acc``, in
+      place.
+    * ``collect(a, acc, n, **opts) -> raw``: the accumulator as the
+      logical ``(M, n)`` f32 tensor.
+
+    2-D (K-window x N-tile) streaming calls each hook once per column
+    tile, with ``n`` the tile's width; ``spmm_streaming`` also passes the
+    tile's index as ``tile=``, which hooks may ignore. The epilogue is
+    shared (:func:`stream_finish`).
+    """
+
+    init: Callable
+    step: Callable
+    collect: Callable
+
+
+def stream_finish(raw, c, alpha, beta, dtype):
+    """The streaming epilogue on the collected raw accumulator, rounded as
+    the resident paths' epilogues round: ``alpha * raw`` and ``beta * c``
+    each rounded, then their sum, cast to ``dtype`` (b's dtype)."""
+    return (alpha * raw + beta * c.float()).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
 class Backend:
     name: str
     fn: Callable
     formats: FrozenSet[Format]
     description: str = ""
+    stream: Optional[StreamOps] = None
 
 
 _REGISTRY: Dict[str, Backend] = {}
@@ -81,9 +124,12 @@ def register_backend(
     formats=(Format.HFLEX,),
     description: str = "",
     overwrite: bool = False,
+    stream: Optional[StreamOps] = None,
 ) -> Backend:
     """Register an SpMM execution strategy under ``name``:
-    ``fn(A: SparseTensor, b, c, alpha, beta, **opts) -> Tensor``."""
+    ``fn(A: SparseTensor, b, c, alpha, beta, **opts) -> Tensor``.
+    ``stream`` optionally provides the out-of-core streaming hooks
+    (:class:`StreamOps`); backends without them reject streaming."""
     if name == "auto":
         raise ValueError("'auto' is reserved; use set_auto_policy to change "
                          "auto dispatch")
@@ -91,7 +137,7 @@ def register_backend(
         raise ValueError(f"backend {name!r} already registered "
                          f"(pass overwrite=True to replace)")
     be = Backend(name=name, fn=fn, formats=frozenset(formats),
-                 description=description)
+                 description=description, stream=stream)
     _REGISTRY[name] = be
     return be
 
@@ -264,15 +310,101 @@ def _backend_torch(a, b, c, alpha, beta, **_unused):
                             d.m)
 
 
+# -- out-of-core streaming hooks (K0-window chunk accumulation) -------------
+
+
+def _hflex_torch_stream_init(a, n: int, *, device=None, **_unused):
+    return torch.zeros((a.shape[0], n), dtype=torch.float32,
+                       device=device or a.device)
+
+
+def _hflex_torch_stream_step(a_chunk, b_chunk, acc, **_unused):
+    """Add one window chunk's live slots onto the carried ``(M, N)`` acc
+    with the flat path's ordered scatter-add, in slot order, so a chain of
+    chunks adds exactly what the resident path adds. Only slots below the
+    chunk's ``nse`` are gathered: the inert tail windows a streaming plan
+    pads with (``nse`` = 0, rows past ``MB*TM``) contribute nothing, where
+    the reference drops their out-of-range rows in its scatter."""
+    d = a_chunk.data
+    live, rows_g, cols_g = _hflex_global_ids(d)
+    return spmm_coo_ref(rows_g, cols_g, d.vals[live], b_chunk, None,
+                        acc.shape[0], acc=acc)
+
+
+def _hflex_torch_stream_collect(a, acc, n: int, **_unused):
+    return acc
+
+
+def _kernel_stream_init(a, width: int, device):
+    d = a.data
+    return torch.zeros((d.mb * d.tm, width), dtype=torch.float32,
+                       device=device or a.device)
+
+
+def _kernel_stream_step(kernel, a_chunk, b_chunk, acc, **kw):
+    """One accumulate-mode launch over the chunk's windows: ``b_chunk``
+    padded to the chunk's ``NW*K0`` rows and the acc's width, the carried
+    acc in kernel layout (padded rows, row interleave) updated in place."""
+    d = a_chunk.data
+    shape = (d.nw * d.k0, acc.shape[-1])
+    if tuple(b_chunk.shape) == shape and b_chunk.is_contiguous():
+        bp = b_chunk
+    else:
+        bp = torch.zeros(shape, dtype=b_chunk.dtype, device=b_chunk.device)
+        bp[:b_chunk.shape[0], :b_chunk.shape[1]] = b_chunk
+    slabs = (d.vals.contiguous(), d.cols.contiguous(), d.rows.contiguous(),
+             d.q.contiguous())
+    return kernel(*slabs, bp, acc, tm=d.tm, k0=d.k0, accumulate=True, **kw)
+
+
+def _kernel_stream_collect(a, acc, n: int, **_unused):
+    d = a.data
+    if d.interleaved:
+        acc = _permute_rows_inv(acc, d.mb, d.tm)
+    return acc[:a.shape[0], :n]
+
+
+def _hflex_cuda_stream_init(a, n: int, *, tn=128, device=None, **_unused):
+    return _kernel_stream_init(a, cdiv(n, tn) * tn, device)
+
+
+def _hflex_cuda_stream_step(a_chunk, b_chunk, acc, *, tn=128, **_unused):
+    return _kernel_stream_step(sextans_spmm_cuda, a_chunk, b_chunk, acc,
+                               tn=tn)
+
+
+def _hflex_spmv_stream_init(a, n: int, *, nv=8, device=None, **_unused):
+    return _kernel_stream_init(a, cdiv(n, nv) * nv, device)
+
+
+def _hflex_spmv_stream_step(a_chunk, b_chunk, acc, **_unused):
+    return _kernel_stream_step(sextans_spmv_cuda, a_chunk, b_chunk, acc)
+
+
+_TORCH_STREAM = StreamOps(init=_hflex_torch_stream_init,
+                          step=_hflex_torch_stream_step,
+                          collect=_hflex_torch_stream_collect)
+_CUDA_STREAM = StreamOps(init=_hflex_cuda_stream_init,
+                         step=_hflex_cuda_stream_step,
+                         collect=_kernel_stream_collect)
+_SPMV_STREAM = StreamOps(init=_hflex_spmv_stream_init,
+                         step=_hflex_spmv_stream_step,
+                         collect=_kernel_stream_collect)
+
+
 register_backend(
     "cuda", _backend_cuda,
-    description="Sextans SpMM kernel (CUDA, sm_90a)")
+    description="Sextans SpMM kernel (CUDA, sm_90a)",
+    stream=_CUDA_STREAM)
 register_backend(
     "spmv", _backend_spmv,
-    description="skinny-N Sextans kernel (CUDA, sm_90a)")
+    description="skinny-N Sextans kernel (CUDA, sm_90a)",
+    stream=_SPMV_STREAM)
 register_backend(
     "torch", _backend_torch,
-    description="flat gather / ordered scatter-add (CPU path and reference)")
+    description="flat gather / ordered scatter-add (CPU path and reference)",
+    stream=_TORCH_STREAM)
 register_backend(
     "spmv_torch", _backend_torch,
-    description="skinny-N lane, flat twin (the same function as 'torch')")
+    description="skinny-N lane, flat twin (the same function as 'torch')",
+    stream=_TORCH_STREAM)

@@ -184,6 +184,65 @@ class SparseTensor:
         return dataclasses.replace(self, data=self.data.to(device))
 
     @property
+    def nbytes(self) -> int:
+        """Total bytes of the packed payload (every payload tensor): what
+        the out-of-core threshold of ``plan(..., device_bytes=)`` compares
+        against a device-memory budget."""
+        return int(sum(getattr(self.data, f).numel()
+                       * getattr(self.data, f).element_size()
+                       for f in _SLAB_FIELDS))
+
+    @property
+    def on_host(self) -> bool:
+        """True when every payload tensor lies on the CPU, as
+        ``device="cpu"`` packs it: a streaming plan reads such a payload
+        window chunk by window chunk and never commits it whole."""
+        return all(getattr(self.data, f).device.type == "cpu"
+                   for f in _SLAB_FIELDS)
+
+    def to_device(self, device: Device = "cuda") -> "SparseTensor":
+        """The payload committed to ``device`` (one copy per tensor); the
+        tensor itself when it lies there already."""
+        dev = _device(device)
+        if all(getattr(self.data, f).device == dev for f in _SLAB_FIELDS):
+            return self
+        return self.to(dev)
+
+    # -- K0-window structure (out-of-core streaming) -------------------------
+
+    @property
+    def num_windows(self) -> int:
+        """Number of K0 windows along K (the slab NW axis)."""
+        return self.data.nw
+
+    def windows(self, w0: int, w1: int) -> "SparseTensor":
+        """The sub-matrix covering K0-windows ``[w0, w1)``.
+
+        A view over the window axis: the ``(MB, w1-w0, LW)`` slabs with
+        ``q``/``nse`` sliced along, logical shape
+        ``(M, min(K, w1*K0) - w0*K0)``, i.e. column block
+        ``[w0*K0, w1*K0)`` of ``A`` re-based to column 0. Slab ``cols`` are
+        window-local, so ``A.windows(w0, w1) @ b[w0*K0 : w1*K0]`` is exactly
+        those windows' contribution to ``A @ b``. The slab views are not
+        contiguous. ``nnz`` is the slice's true count when ``nse`` lies on
+        the CPU, and the parent's (an upper bound) on the card, where
+        counting would wait for the device.
+        """
+        d = self.data
+        w0, w1 = int(w0), int(w1)
+        if not 0 <= w0 < w1 <= d.nw:
+            raise ValueError(f"window slice [{w0}, {w1}) out of range for "
+                             f"NW={d.nw}")
+        nse_w = d.nse[:, w0:w1]
+        nnz_w = int(nse_w.sum()) if nse_w.device.type == "cpu" else d.nnz
+        k_w = min(self.k, w1 * d.k0) - w0 * d.k0
+        data_w = dataclasses.replace(
+            d, vals=d.vals[:, w0:w1], cols=d.cols[:, w0:w1],
+            rows=d.rows[:, w0:w1], q=d.q[:, w0:w1], nse=nse_w, k=k_w,
+            nnz=nnz_w)
+        return dataclasses.replace(self, data=data_w, shape=(self.m, k_w))
+
+    @property
     def values(self) -> torch.Tensor:
         """The non-zero payload (the vals slab)."""
         return self.data.vals
