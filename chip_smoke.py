@@ -22,10 +22,13 @@ the kernels are built for sm_90a). Phases:
    plain version, times kernel, plain version and the library SpMM, and
    prints one JSON line;
 5. the streaming path on the same matrix, packed on the host: cases (d)
-   and (e) run ``plan(..., device_bytes=)`` -> ``StreamingPlan.run``, each
-   zeroing the counters first, and check the result bit for bit against
-   the resident ``spmm`` with the same backend; they time the run, its
-   copies alone and its compute alone, and print one JSON line each. Case
+   and (e) run ``plan(..., device_bytes=)`` on its own choice of tier (on
+   the card either way; case (d)'s budget keeps it resident, and that
+   plan runs too), then ``StreamingPlan.run``, each zeroing the counters
+   first, and check every result bit for bit against the resident
+   ``spmm`` with the same backend; they time the run and the two halves
+   it composes, staging alone and compute alone, and print one JSON line
+   each. Case
    (f) runs ``spmm_streaming`` forward (bit for bit against ``spmm``) and
    backward (gradients within tolerance of ``spmm``'s);
 6. one JSON line for all kernels, then the card's name and power limit,
@@ -452,82 +455,90 @@ def stream_step_bound(P):
     over the steps: per step, the chunk's non-zeros (12 B each), its block
     of b and the C stripe read and written once over the HBM rate, against
     2 * nnz * width flops over the fp32 rate. Returns (ms, bound_by)."""
-    d = P._d
+    d = P.a.data
     nse = d.nse.sum(dim=0).tolist()            # live slots per window
     t_bytes = t_flops = total = 0.0
-    for j, i in P._grid():
-        w0, w1 = i * P.window_chunk, min(d.nw, (i + 1) * P.window_chunk)
+    for j in range(P.n_tiles):
         width = min(P.n, (j + 1) * P.n_tile) - j * P.n_tile
-        nnz = sum(nse[w0:w1])
-        rows_b = min(P.k, w1 * d.k0) - w0 * d.k0
-        tb = (12 * nnz + rows_b * width * 4 + 2 * P.m * width * 4
-              ) / HBM_BYTES_PER_S * 1e3
-        tf = 2 * nnz * width / FP32_FLOPS_PER_S * 1e3
-        t_bytes, t_flops = t_bytes + tb, t_flops + tf
-        total += max(tb, tf)
+        for i in range(P.steps):
+            w0, w1 = i * P.window_chunk, min(d.nw, (i + 1) * P.window_chunk)
+            nnz = sum(nse[w0:w1])
+            rows_b = min(P.k, w1 * d.k0) - w0 * d.k0
+            tb = (12 * nnz + rows_b * width * 4 + 2 * P.m * width * 4
+                  ) / HBM_BYTES_PER_S * 1e3
+            tf = 2 * nnz * width / FP32_FLOPS_PER_S * 1e3
+            t_bytes, t_flops = t_bytes + tb, t_flops + tf
+            total += max(tb, tf)
     return total, "bytes" if t_bytes >= t_flops else "operations"
 
 
-def compute_only(P, b_h, c, dev, mods):
-    """The run's compute with every chunk already on the card: returns
-    (run_fn, steps_fn, plain_fn). ``run_fn`` does what ``run`` does minus
-    the staging; ``steps_fn`` only the accumulate launches; ``plain_fn``
-    the plain version of the first tile's steps."""
-    bk = mods["backends"]
-    name = next(nm for nm, kk in KERNELS.items()
-                if kk["backend"] == P.backend)
-    kern, plain = kernel_call(name, mods), plain_call(name, mods)
-    kw = dict(tm=P._d.tm, k0=P._d.k0)
-    if name == "sextans_spmm":
-        kw["tn"] = P.opts.get("tn", 128)
-    stream, grid = bk.get_backend(P.backend).stream, P._grid()
-    slabs, bchunks = {}, []
-    for j, i in grid:
-        h = {f: torch.empty(sh, dtype=dt) for f, (sh, dt) in
-             P._shapes.items()}
-        P._fill_chunk(h, i, j * P.n_tile, b_h, P._d.vals)
-        if i not in slabs:
-            slabs[i] = {f: x.to(dev) for f, x in h.items() if f != "b"}
-        bchunks.append(h["b"].to(dev))
-    c_tiles = [P._c_tile(c, j) for j in range(P.n_tiles)]
+def run_halves(P, b_h, c, dev, mods):
+    """The two halves that ``StreamingPlan.run`` composes, apart: returns
+    (copy_fn, compute_fn, steps_fn, plain_fn). ``copy_fn`` runs the
+    staging half (``_chunks``) with nothing computed; ``compute_fn`` the
+    compute half (``_compute``) over chunks staged on the card beforehand;
+    ``steps_fn`` only the run's accumulate launches on those chunks, and
+    ``plain_fn`` the plain version of the first tile's."""
+    vals_h = P.a.data.vals
+
+    def copy_fn():
+        for _ in P._chunks(b_h, vals_h):
+            pass
+
+    staged = [(pos, {f: x.clone() for f, x in chunk.items()})
+              for pos, chunk in P._chunks(b_h, vals_h)]
     alpha = torch.tensor(ALPHA, device=dev)
     beta = torch.tensor(BETA, device=dev)
 
-    def run_fn():
-        for t, (j, i) in enumerate(grid):
-            if i == 0:
-                acc = stream.init(P.a, P.n_tile, device=dev, **P.opts)
-            chunk = P._chunk_tensor({**slabs[i], "b": bchunks[t]})
-            acc = stream.step(chunk, bchunks[t], acc, **P.opts)
-            if i == P.steps - 1:
-                raw = stream.collect(P.a, acc, P.n_tile, **P.opts)
-                bk.stream_finish(raw, c_tiles[j], alpha, beta, P.dtype)
+    def compute_fn():
+        P._compute(iter(staged), c, alpha, beta)
 
-    acc = stream.init(P.a, P.n_tile, device=dev, **P.opts)
-    # The kernels take b at the accumulator's padded width.
-    bpadded = []
-    for bc in bchunks:
-        bp = torch.zeros((bc.shape[0], acc.shape[1]), dtype=bc.dtype,
-                         device=dev)
-        bp[:, :bc.shape[1]] = bc
-        bpadded.append(bp)
-
-    def args(t, i):
-        s_ = slabs[i]
-        return (s_["vals"], s_["cols"], s_["rows"], s_["q"], bpadded[t], acc)
+    name = next(nm for nm, kk in KERNELS.items()
+                if kk["backend"] == P.backend)
+    kern, plain = kernel_call(name, mods), plain_call(name, mods)
+    d = P.a.data
+    kw = dict(tm=d.tm, k0=d.k0)
+    width = -(-P.n_tile // 8) * 8
+    if name == "sextans_spmm":
+        kw["tn"] = P.opts.get("tn", 128)
+        width = -(-P.n_tile // kw["tn"]) * kw["tn"]
+    acc = torch.zeros((d.mb * d.tm, width), dtype=torch.float32, device=dev)
+    args = []
+    for _, ch in staged:
+        bp = ch["b"]
+        if bp.shape[1] != width:               # the kernels' padded width
+            bp = torch.zeros((bp.shape[0], width), dtype=bp.dtype,
+                             device=dev)
+            bp[:, :ch["b"].shape[1]] = ch["b"]
+        args.append((ch["vals"], ch["cols"], ch["rows"], ch["q"], bp, acc))
 
     def steps_fn():
-        for t, (_, i) in enumerate(grid):
-            kern(*args(t, i), accumulate=True, **kw)
+        for a in args:
+            kern(*a, accumulate=True, **kw)
 
     def plain_fn():
-        for t, (_, i) in enumerate(grid[:P.steps]):
-            plain(*args(t, i), accumulate=True, **kw)
+        for a in args[:P.steps]:
+            plain(*a, accumulate=True, **kw)
 
-    return run_fn, steps_fn, plain_fn
+    return copy_fn, compute_fn, steps_fn, plain_fn
+
+
+def zero_counts(mods):
+    for mod in (mods["spmm"], mods["spmv"]):
+        mod.LAUNCHES = mod.ACCUMULATE_LAUNCHES = 0
+
+
+def read_counts(mods):
+    return {nm: {"resident": mods[key].LAUNCHES,
+                 "accumulate": mods[key].ACCUMULATE_LAUNCHES}
+            for nm, key in (("sextans_spmm", "spmm"), ("sextans_spmv", "spmv"))}
 
 
 def run_stream_case(label, A_h, A_dev, n, budget, backend, dev, mods, gbps):
+    """``plan(A_h, n, device_bytes=budget)`` as a user calls it, on its own
+    choice of tier; then the streaming tier, forced where the budget keeps
+    the matrix resident. Both results must equal the resident ``spmm``'s
+    bit for bit."""
     sp = mods["sp"]
     rng = np.random.default_rng(SEED)
     m, k = A_h.shape
@@ -535,33 +546,55 @@ def run_stream_case(label, A_h, A_dev, n, budget, backend, dev, mods, gbps):
     c_h = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
     b_d, c_d = b_h.to(dev), c_h.to(dev)
     working = A_h.nbytes + (k * n + 2 * m * n) * 4
-    P = sp.plan(A_h, n, device_bytes=budget, backend=backend, stream=True)
-    check(isinstance(P, sp.StreamingPlan), f"case {label}: {P!r}")
     name = next(nm for nm, kk in KERNELS.items() if kk["backend"] == backend)
-    emit({"phase": "stream_plan", "case": label, "plan": repr(P),
-          "device_bytes": budget, "resident_working_set": working,
-          "tier_by_budget": "streaming" if working > budget else "resident",
-          "n_tile": P.n_tile, "n_tiles": P.n_tiles,
-          "window_chunk": P.window_chunk, "steps": P.steps,
-          "window_dispatches": P.window_dispatches,
-          "chunk_payload_bytes": P.chunk_payload_bytes,
-          "peak_payload_bytes": P.peak_payload_bytes})
+    y_res = sp.spmm(A_dev, b_d, c_d, ALPHA, BETA, backend=backend)
+
+    chosen = sp.plan(A_h, n, device_bytes=budget, backend=backend)
+    check(chosen.device.type == "cuda",
+          f"case {label}: plan() computes on {chosen.device}")
+    plan_line = {"phase": "stream_plan", "case": label,
+                 "resident_plan_launches": 0,
+                 "chosen": repr(chosen), "device_bytes": budget,
+                 "resident_working_set": working}
+    if isinstance(chosen, sp.SpmmPlan):
+        # The budget keeps A resident: drive that tier on the card too.
+        torch.cuda.synchronize()
+        zero_counts(mods)
+        y = chosen.run(b_h, c_h, ALPHA, BETA)
+        torch.cuda.synchronize()
+        counts = read_counts(mods)
+        check(counts[name]["resident"] >= 1,
+              f"case {label}: the resident plan launched {name} "
+              f"{counts[name]['resident']} times")
+        check(torch.equal(y, y_res),
+              f"case {label}: resident plan differs from spmm")
+        plan_line.update(
+            resident_plan_launches=counts[name]["resident"],
+            resident_plan_ms=time_ms(
+                lambda: chosen.run(b_d, c_d, ALPHA, BETA)))
+        P = sp.plan(A_h, n, device_bytes=budget, backend=backend, stream=True)
+    else:
+        P = chosen
+    del chosen
+    check(isinstance(P, sp.StreamingPlan), f"case {label}: {P!r}")
+    plan_line.update(
+        plan=repr(P), n_tile=P.n_tile, n_tiles=P.n_tiles,
+        window_chunk=P.window_chunk, steps=P.steps,
+        window_dispatches=P.window_dispatches,
+        chunk_payload_bytes=P.chunk_payload_bytes,
+        peak_payload_bytes=P.peak_payload_bytes)
+    emit(plan_line)
 
     torch.cuda.synchronize()
-    for mod in (mods["spmm"], mods["spmv"]):
-        mod.LAUNCHES = mod.ACCUMULATE_LAUNCHES = 0
+    zero_counts(mods)
     y = P.run(b_h, c_h, ALPHA, BETA)
     torch.cuda.synchronize()
-    launches = {nm: {"resident": mods[key].LAUNCHES,
-                     "accumulate": mods[key].ACCUMULATE_LAUNCHES}
-                for nm, key in (("sextans_spmm", "spmm"),
-                                ("sextans_spmv", "spmv"))}
+    launches = read_counts(mods)
     check(launches[name]["accumulate"] == P.window_dispatches,
           f"case {label}: {launches[name]['accumulate']} accumulate launches "
           f"of {name}, expected {P.window_dispatches}")
     check(tuple(y.shape) == (m, n), f"case {label}: shape {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()), f"case {label}: non-finite values")
-    y_res = sp.spmm(A_dev, b_d, c_d, ALPHA, BETA, backend=backend)
     check(torch.equal(y.to(dev), y_res),
           f"case {label}: streamed result differs from the resident one "
           f"(max |diff| {(y.to(dev) - y_res).abs().max().item():.3e})")
@@ -570,12 +603,13 @@ def run_stream_case(label, A_h, A_dev, n, budget, backend, dev, mods, gbps):
                         reps=STREAM_REPS, warmup=1)
     resident_ms = time_ms(
         lambda: sp.spmm(A_dev, b_d, c_d, ALPHA, BETA, backend=backend))
-    copy_ms = time_ms(lambda: P.stage_all(b_h), reps=STREAM_REPS, warmup=1)
-    run_fn, steps_fn, plain_fn = compute_only(
+    copy_fn, compute_fn, steps_fn, plain_fn = run_halves(
         P, b_h, c_d if P.n_tiles == 1 else c_h, dev, mods)
-    compute_ms = time_ms(run_fn, reps=STREAM_REPS, warmup=1)
+    copy_ms = time_ms(copy_fn, reps=STREAM_REPS, warmup=1)
+    compute_ms = time_ms(compute_fn, reps=STREAM_REPS, warmup=1)
     steps_ms = time_ms(steps_fn, reps=STREAM_REPS, warmup=1)
     plain_ms = time_ms(plain_fn, reps=3, warmup=1)
+    del copy_fn, compute_fn, steps_fn, plain_fn
     bound, bound_by = stream_step_bound(P)
     h2d = P.h2d_bytes
     staging_bound_ms = h2d / (gbps * 1e9) * 1e3
@@ -583,6 +617,7 @@ def run_stream_case(label, A_h, A_dev, n, budget, backend, dev, mods, gbps):
         case=label, kernel=name, backend=backend, m=m, k=k, n=n,
         slab_geometry=list(A_h.data.geometry), payload_bytes=A_h.nbytes,
         bit_identical_to_resident=True, launches=launches,
+        resident_plan_launches=plan_line["resident_plan_launches"],
         stream_ms=stream_ms, resident_ms=resident_ms,
         copy_only_ms=copy_ms, compute_only_ms=compute_ms,
         h2d_bytes=h2d, h2d_gbps=gbps, staging_bound_ms=staging_bound_ms,
@@ -690,7 +725,8 @@ def kernels_line(rows, stream_rows):
         st = streamed[0]
         by_mode = {
             "resident": sum(r["launches"] for r in mine) + sum(
-                r["launches"][name]["resident"] for r in stream_rows),
+                r["launches"][name]["resident"] + r["resident_plan_launches"]
+                for r in streamed),
             "accumulate": sum(r["launches"][name]["accumulate"]
                               for r in stream_rows)}
         check(by_mode["accumulate"] >= 1,

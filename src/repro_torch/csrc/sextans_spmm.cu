@@ -12,12 +12,12 @@
 //   c_in f32                     : (MB*TM, NPAD), in the slabs' row layout
 //   ab   f32                     : (2,) device buffer [alpha, beta]
 //   out  b's type                : (MB*TM, NPAD)
-// In accumulate mode c_in is the f32 accumulator in this same padded,
-// interleaved layout, ab is not read, and out is c_in itself: each CTA
-// seeds its tile from c_in and writes the raw f32 tile back in place, with
-// no epilogue. Aliasing is safe because a CTA reads every element of its
-// own tile before it writes any, and no other CTA touches that tile; so
-// c_in and out carry no __restrict__.
+// In accumulate mode out is the f32 accumulator in this same padded,
+// interleaved layout, updated in place: each CTA seeds its tile from out,
+// adds its slots and writes the raw f32 tile back, with no epilogue. c_in
+// and ab are not read (the wrapper passes null). A CTA reads every element
+// of its own tile before it writes any, and no other CTA touches that
+// tile. No two pointers alias, so all keep __restrict__.
 //
 // Design. One CTA owns the TM x TN output tile (m, n-tile) and walks the
 // windows w = 0..NW-1 in order: the loop takes the place of the TPU grid's
@@ -44,7 +44,7 @@
 // three CTAs per SM (70 KiB of shared memory each). A stream step
 // (accumulate mode) also reads and writes the whole f32 accumulator once:
 // on the H100 at PERF.md case (d), one window of 938 row blocks against a
-// 128-column tile, a step took 0.098 ms against a 0.037 ms bound that is
+// 128-column tile, a step took 0.097 ms against a 0.037 ms bound that is
 // almost all that 123 MB round trip. The streamed run as a whole is bound
 // by staging on the host, not by this kernel (PERF.md section 5). What the
 // design does: each thread issues kUnroll independent B loads before it
@@ -60,23 +60,23 @@ namespace {
 
 constexpr int kStage = 512;   // slots staged into shared memory per pass
 constexpr int kUnroll = 8;    // B loads in flight per thread
-constexpr int kEpilogue = 8;  // c_in loads in flight per thread, epilogue
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// OutT is T in resident mode and float in accumulate mode (out == c_in).
+// OutT is T in resident mode and float in accumulate mode (out is the
+// accumulator).
 template <typename T, typename OutT, bool kAccumulate>
 __global__ void sextans_spmm_kernel(const float* __restrict__ vals,
                                     const int* __restrict__ cols,
                                     const int* __restrict__ rows,
                                     const int* __restrict__ q,
                                     const T* __restrict__ b,
-                                    const float* c_in,
+                                    const float* __restrict__ c_in,
                                     const float* __restrict__ ab,
-                                    OutT* out,
+                                    OutT* __restrict__ out,
                                     int nw, int lw, int tm, int k0, int npad) {
   extern __shared__ float smem[];
   const int tn = blockDim.x;
@@ -91,7 +91,7 @@ __global__ void sextans_spmm_kernel(const float* __restrict__ vals,
   const int64_t tile0 = static_cast<int64_t>(m) * tm * npad + n0 + t;
   for (int r = 0; r < tm; ++r)
     acc[r * tn + t] =
-        kAccumulate ? c_in[tile0 + static_cast<int64_t>(r) * npad] : 0.f;
+        kAccumulate ? to_f32(out[tile0 + static_cast<int64_t>(r) * npad]) : 0.f;
 
   const T* b_col = b + n0 + t;
   for (int w = 0; w < nw; ++w) {
@@ -137,21 +137,10 @@ __global__ void sextans_spmm_kernel(const float* __restrict__ vals,
   }
   const float alpha = ab[0];
   const float beta = ab[1];
-  // c_in and out carry no __restrict__, so the compiler keeps each load
-  // behind the previous store; loading kEpilogue rows before storing any
-  // keeps that many loads in flight.
-  for (int r0 = 0; r0 < tm; r0 += kEpilogue) {
-    float cv[kEpilogue];
-#pragma unroll
-    for (int u = 0; u < kEpilogue; ++u)
-      if (r0 + u < tm)
-        cv[u] = c_in[tile0 + static_cast<int64_t>(r0 + u) * npad];
-#pragma unroll
-    for (int u = 0; u < kEpilogue; ++u)
-      if (r0 + u < tm)
-        store(out + tile0 + static_cast<int64_t>(r0 + u) * npad,
-              __fadd_rn(__fmul_rn(alpha, acc[(r0 + u) * tn + t]),
-                        __fmul_rn(beta, cv[u])));
+  for (int r = 0; r < tm; ++r) {
+    const int64_t o = tile0 + static_cast<int64_t>(r) * npad;
+    store(out + o, __fadd_rn(__fmul_rn(alpha, acc[r * tn + t]),
+                             __fmul_rn(beta, c_in[o])));
   }
 }
 
@@ -179,8 +168,8 @@ int launch(const float* vals, const int* cols, const int* rows, const int* q,
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // b_bf16 selects the bf16 instantiation for b (and, resident, for out),
-// else f32. accumulate selects the stream step: out must be c_in, and ab
-// may be null.
+// else f32. accumulate selects the stream step: out is the accumulator,
+// and c_in and ab may be null.
 extern "C" int sextans_spmm_launch(const float* vals, const int* cols,
                                    const int* rows, const int* q,
                                    const void* b, const float* c_in,

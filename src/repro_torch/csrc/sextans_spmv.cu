@@ -13,11 +13,12 @@
 //   c_in f32                     : (MB*TM, NV), in the slabs' row layout
 //   ab   f32                     : (2,) device buffer [alpha, beta]
 //   out  b's type                : (MB*TM, NV)
-// In accumulate mode c_in is the f32 accumulator in this same padded,
-// interleaved layout, ab is not read, and out is c_in itself: thread r
-// seeds its 8 register accumulators from its own row of c_in and writes
-// them back raw, with no epilogue. No other thread reads or writes that
-// row segment, so the aliasing is safe; c_in and out carry no __restrict__.
+// In accumulate mode out is the f32 accumulator in this same padded,
+// interleaved layout, updated in place: thread r seeds its 8 register
+// accumulators from its own row segment of out and writes them back raw,
+// with no epilogue. c_in and ab are not read (the wrapper passes null).
+// No other thread reads or writes that row segment, and no two pointers
+// alias, so all keep __restrict__.
 //
 // Design. One CTA per (row block m, group of 8 columns); for N <= 8 that
 // is one CTA per row block, and each B window is read once by it. The CTA
@@ -61,16 +62,17 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// OutT is T in resident mode and float in accumulate mode (out == c_in).
+// OutT is T in resident mode and float in accumulate mode (out is the
+// accumulator).
 template <typename T, typename OutT, bool kAccumulate>
 __global__ void sextans_spmv_kernel(const float* __restrict__ vals,
                                     const int* __restrict__ cols,
                                     const int* __restrict__ rows,
                                     const int* __restrict__ q,
                                     const T* __restrict__ b,
-                                    const float* c_in,
+                                    const float* __restrict__ c_in,
                                     const float* __restrict__ ab,
-                                    OutT* out,
+                                    OutT* __restrict__ out,
                                     int nw, int lw, int tm, int k0, int nv) {
   __shared__ float s_val[kStage];
   __shared__ int s_col[kStage];
@@ -81,7 +83,7 @@ __global__ void sextans_spmv_kernel(const float* __restrict__ vals,
   const int64_t o = (static_cast<int64_t>(m) * tm + r) * nv + v0;
   float acc[kCols];
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) acc[i] = kAccumulate ? c_in[o + i] : 0.f;
+  for (int i = 0; i < kCols; ++i) acc[i] = kAccumulate ? to_f32(out[o + i]) : 0.f;
 
   for (int w = 0; w < nw; ++w) {
     const int count = min(q[m * nw + w], lw);
@@ -120,15 +122,10 @@ __global__ void sextans_spmv_kernel(const float* __restrict__ vals,
   }
   const float alpha = ab[0];
   const float beta = ab[1];
-  // c_in and out carry no __restrict__: load the row segment before
-  // storing any of it, so the loads are not kept behind the stores.
-  float cv[kCols];
-#pragma unroll
-  for (int i = 0; i < kCols; ++i) cv[i] = c_in[o + i];
 #pragma unroll
   for (int i = 0; i < kCols; ++i)
     store(out + o + i, __fadd_rn(__fmul_rn(alpha, acc[i]),
-                                 __fmul_rn(beta, cv[i])));
+                                 __fmul_rn(beta, c_in[o + i])));
 }
 
 template <typename T, typename OutT, bool kAccumulate>
@@ -147,8 +144,8 @@ int launch(const float* vals, const int* cols, const int* rows, const int* q,
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // b_bf16 selects the bf16 instantiation for b (and, resident, for out),
-// else f32. accumulate selects the stream step: out must be c_in, and ab
-// may be null.
+// else f32. accumulate selects the stream step: out is the accumulator,
+// and c_in and ab may be null.
 extern "C" int sextans_spmv_launch(const float* vals, const int* cols,
                                    const int* rows, const int* q,
                                    const void* b, const float* c_in,

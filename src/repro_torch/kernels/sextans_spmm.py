@@ -131,9 +131,13 @@ def sextans_spmm_cuda(vals, cols, rows, q, b, c_in, ab=None, *, tm: int,
         return out
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
+        # Accumulating, the kernel seeds from out and writes it in place;
+        # it reads neither c_in nor ab.
         err = lib.sextans_spmm_launch(
-            *(x.data_ptr() for x in ops[:6]),
-            None if accumulate else ab.data_ptr(), out.data_ptr(),
+            *(x.data_ptr() for x in ops[:5]),
+            *((None, None) if accumulate else (c_in.data_ptr(),
+                                               ab.data_ptr())),
+            out.data_ptr(),
             mb, nw, lw, tm, k0, npad, tn, int(b.dtype == torch.bfloat16),
             int(accumulate), stream)
     if err:

@@ -56,8 +56,9 @@ _AB_CACHE_MAX = 256
 def device_memory_budget() -> Optional[int]:
     """The bytes free on the current CUDA device now: the first figure of
     ``torch.cuda.mem_get_info()`` (free, not total). ``None`` without a
-    card, so ``plan(..., device_bytes="auto")`` stays resident on the
-    CPU."""
+    card, so ``plan(..., device="cpu", device_bytes="auto")`` stays
+    resident, as the reference's plan does on a backend that reports no
+    limit."""
     if not torch.cuda.is_available():
         return None
     free, _total = torch.cuda.mem_get_info()
@@ -215,6 +216,7 @@ class _Staging:
         self.copied = [None, None]
         self.freed = [None, None]
         self.copy_stream = torch.cuda.Stream(device) if self.cuda else None
+        self.d2h_stream: Optional[torch.cuda.Stream] = None
 
     def stage(self, slot: int, fill) -> None:
         """Write a chunk into ``slot`` with ``fill(host_tensors)`` and start
@@ -250,28 +252,35 @@ class _Staging:
             ev.record(torch.cuda.current_stream(self.device))
             self.freed[slot] = ev
 
-    def drain(self) -> None:
-        """Wait for every copy started so far."""
-        for ev in self.copied:
-            if ev is not None:
-                ev.synchronize()
-
-    def to_host(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` copied to the host on the copy stream, after the work
-        queued so far on the compute stream, without waiting for work
-        queued on the compute stream later."""
+    def start_to_host(self, x: torch.Tensor):
+        """Start copying ``x`` to pinned host memory on a stream of its
+        own, after the work queued so far on the compute stream, and return
+        at once. The copy overlaps both the steps queued after it and the
+        staging copies. Hand the returned handle to :meth:`land`."""
         if not self.cuda:
-            return x
+            return x, None, None
+        if self.d2h_stream is None:
+            self.d2h_stream = torch.cuda.Stream(self.device)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self.copy_stream):
-            self.copy_stream.wait_event(ready)
-            out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            out.copy_(x, non_blocking=True)
+        with torch.cuda.stream(self.d2h_stream):
+            self.d2h_stream.wait_event(ready)
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x, non_blocking=True)
             done = torch.cuda.Event()
-            done.record(self.copy_stream)
-        done.synchronize()
-        return out
+            done.record(self.d2h_stream)
+        # ``x`` stays referenced in the handle until the copy has landed,
+        # so the allocator cannot hand its memory out before then.
+        return host, done, x
+
+    @staticmethod
+    def land(handle) -> torch.Tensor:
+        """Wait for a copy started by :meth:`start_to_host`; its host
+        tensor."""
+        host, done, _x = handle
+        if done is not None:
+            done.synchronize()
+        return host
 
 
 class StreamingPlan:
@@ -288,8 +297,10 @@ class StreamingPlan:
     padded with inert windows (``q`` = ``nse`` = 0, rows past ``MB*TM``)
     and the tail tile with zero columns. The epilogue runs once per tile.
     ``run`` waits for the device only to reuse a staging slot, and, with
-    ``n_tiles > 1``, to bring each finished stripe back, one tile late, so
-    that at most two stripes lie on the card.
+    ``n_tiles > 1``, for a finished stripe's copy to the host: the copy
+    starts as soon as the stripe is made, runs on its own stream while the
+    next tile computes, and is waited for one tile later, so that at most
+    two stripes lie on the card.
 
     The budget sizes both dimensions as the reference does: the largest
     ``n_tile`` (N, then descending powers of two) whose working set
@@ -509,16 +520,66 @@ class StreamingPlan:
     def _grid(self):
         return [(j, i) for j in range(self.n_tiles) for i in range(self.steps)]
 
-    def stage_all(self, b, *, values=None) -> None:
-        """Stage every chunk of a run and compute nothing: the copy-only
-        half of :meth:`run`, for measuring how far staging and compute
-        overlap. Returns once every copy has finished."""
-        b_h, vals_h = self._host_operands(b, values)
+    def _chunks(self, b_h: torch.Tensor, vals_h: torch.Tensor):
+        """The staging half of a run: yields ``((j, i), chunk)`` for every
+        step of the grid, ``chunk`` the step's tensors on the compute
+        device, staged while the previous step computes. A chunk's slot is
+        released, and the next chunk staged, when the consumer asks for the
+        next one, so the consumer queues its work on a chunk first."""
         st = self._stager()
-        for t, (j, i) in enumerate(self._grid()):
-            st.stage(t % 2, lambda h, i=i, j=j: self._fill_chunk(
+        grid = self._grid()
+
+        def stage(t):
+            j, i = grid[t]
+            st.stage(t % 2, lambda h: self._fill_chunk(
                 h, i, j * self.n_tile, b_h, vals_h))
-        st.drain()
+
+        stage(0)
+        for t, pos in enumerate(grid):
+            yield pos, st.acquire(t % 2)
+            st.release(t % 2)
+            if t + 1 < len(grid):
+                stage(t + 1)
+
+    def _compute(self, chunks, c, alpha, beta) -> torch.Tensor:
+        """The compute half of a run over ``chunks`` (pairs as
+        :meth:`_chunks` yields them, in grid order): the steps, one
+        epilogue per column tile, and, with ``n_tiles > 1``, each stripe's
+        copy into a host result, waited for one tile late."""
+        stream, opts = self._stream, self.opts
+        st = self._stager()
+        out = None
+        if self.n_tiles > 1:
+            out = torch.empty((self.m, self.n), dtype=self.dtype)
+        pending = None          # tile j-1's stripe, on its way to the host
+        for (j, i), chunk in chunks:
+            if i == 0:
+                acc = stream.init(self.a, self.n_tile, device=self.device,
+                                  **opts)
+            acc = stream.step(self._chunk_tensor(chunk), chunk["b"], acc,
+                              **opts)
+            if i + 1 < self.steps:
+                continue
+            raw = stream.collect(self.a, acc, self.n_tile, **opts)
+            stripe = _bk.stream_finish(raw, self._c_tile(c, j), alpha, beta,
+                                       self.dtype)
+            if out is None:
+                # Returned after the loop, not here: the staging half
+                # releases the last step's slot only when asked for more.
+                result = stripe
+                continue
+            handle = (st.start_to_host(stripe), j * self.n_tile)
+            if pending is not None:
+                self._land(out, *pending)
+            pending = handle
+        if out is None:
+            return result
+        self._land(out, *pending)
+        return out
+
+    def _land(self, out, handle, n0) -> None:
+        n1 = min(self.n, n0 + self.n_tile)
+        out[:, n0:n1] = _Staging.land(handle)[:, :n1 - n0]
 
     def _c_tile(self, c, j: int) -> torch.Tensor:
         """The ``(M, n_tile)`` epilogue operand of tile ``j`` on the compute
@@ -540,7 +601,8 @@ class StreamingPlan:
 
     def run(self, b, c=None, alpha=1.0, beta=0.0, *, values=None
             ) -> torch.Tensor:
-        """Stream the SpMM over the (N-tile x K-chunk) grid.
+        """Stream the SpMM over the (N-tile x K-chunk) grid: the staging
+        half (:meth:`_chunks`) feeds the compute half (:meth:`_compute`).
 
         ``b`` is ``(K, N)`` of the planned dtype, a host array or CPU
         tensor by preference (a device tensor is brought to the host
@@ -554,53 +616,11 @@ class StreamingPlan:
                 raise ValueError(f"c must have shape {(self.m, self.n)}, "
                                  f"got {tuple(c.shape)}")
         alpha, beta = _ab_operands(self._ab_cache, alpha, beta, self.device)
-        stream, opts = self._stream, self.opts
-        st = self._stager()
-        grid = self._grid()
-        out = None
-        if self.n_tiles > 1:
-            out = torch.empty((self.m, self.n), dtype=self.dtype)
-        pending = None          # one finished stripe awaiting writeback
-
-        def stage(t):
-            j, i = grid[t]
-            st.stage(t % 2, lambda h: self._fill_chunk(
-                h, i, j * self.n_tile, b_h, vals_h))
-
         with torch.no_grad():
-            stage(0)
-            for t, (j, i) in enumerate(grid):
-                if i == 0:
-                    acc = stream.init(self.a, self.n_tile,
-                                      device=self.device, **opts)
-                chunk = st.acquire(t % 2)
-                acc = stream.step(self._chunk_tensor(chunk), chunk["b"], acc,
-                                  **opts)
-                st.release(t % 2)
-                if t + 1 < len(grid):          # stage while it computes
-                    stage(t + 1)
-                if i + 1 < self.steps:
-                    continue
-                raw = stream.collect(self.a, acc, self.n_tile, **opts)
-                stripe = _bk.stream_finish(raw, self._c_tile(c, j), alpha,
-                                           beta, self.dtype)
-                if out is None:
-                    result = stripe
-                    continue
-                # Deferred-by-one writeback: bring tile j-1's stripe back
-                # while tile j's steps are queued.
-                if pending is not None:
-                    self._write_back(out, *pending)
-                pending = (stripe, j * self.n_tile)
-            if pending is not None:
-                self._write_back(out, *pending)
+            y = self._compute(self._chunks(b_h, vals_h), c, alpha, beta)
         PLAN_STATS["dispatches"] += self.n_tiles * (self.steps + 1)
         PLAN_STATS["window_dispatches"] += self.steps * self.n_tiles
-        return result if out is None else out
-
-    def _write_back(self, out, stripe, n0):
-        n1 = min(self.n, n0 + self.n_tile)
-        out[:, n0:n1] = self._stager().to_host(stripe)[:, :n1 - n0]
+        return y
 
     def __call__(self, b, c=None, alpha=1.0, beta=0.0, **kw):
         return self.run(b, c, alpha, beta, **kw)
@@ -636,11 +656,17 @@ def plan(
     ``False`` forces the choice; ``window_chunk`` and ``n_tile`` pin the
     streaming grid (otherwise sized from the budget).
 
-    ``device`` is where the plan computes: by default A's device for a
-    resident plan and ``"cuda"`` for a streaming plan. A plan for
-    ``"cuda"`` on a machine without a card raises; it never computes on
-    the CPU instead.
+    ``device`` is where the plan computes. By default that is ``"cuda"``
+    for a streaming plan, and for any plan given a ``device_bytes`` budget
+    (a budget of device memory asks for the card, whatever A's device);
+    otherwise it is A's device, as for ``spmm``. A plan for ``"cuda"`` on
+    a machine without a card raises; it never computes on the CPU
+    instead. Only ``device="cpu"`` computes a budgeted plan on the host.
     """
+    if device is None and (stream or device_bytes is not None):
+        device = "cuda"
+    if device is not None:
+        device = _device(device)              # raises without a card
     budget: Optional[int] = None
     if device_bytes is not None:
         budget = (device_memory_budget() if device_bytes == "auto"
@@ -652,8 +678,7 @@ def plan(
             working = a.nbytes + (k * n + 2 * m * n) * dtype.itemsize
             stream = working > budget
     if stream:
-        return StreamingPlan(a, n, backend, opts, dtype=dtype,
-                             device="cuda" if device is None else device,
+        return StreamingPlan(a, n, backend, opts, dtype=dtype, device=device,
                              device_bytes=budget, window_chunk=window_chunk,
                              n_tile=n_tile)
     if n_tile is not None:

@@ -481,8 +481,27 @@ def test_streaming_plan_needs_a_card(no_cuda):
         tsp.plan(A, N, device_bytes=A.nbytes // 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsp.plan(A, N, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsp.plan(A, N, device_bytes="auto")
     assert tsp.device_memory_budget() is None
-    assert isinstance(tsp.plan(A, N, device_bytes="auto"), tsp.SpmmPlan)
+    P = tsp.plan(A, N, device="cpu", device_bytes="auto")
+    assert isinstance(P, tsp.SpmmPlan) and P.device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw", [dict(device_bytes=1 << 40),
+                                dict(device_bytes=1 << 40, stream=False),
+                                dict(device_bytes=1, stream=False)])
+def test_budgeted_plan_computes_on_the_card_unless_asked(no_cuda, kw):
+    """A device-memory budget asks for the card: a host-packed A whose
+    working set fits still gets no CPU plan unless device="cpu" is given."""
+    _, A, _, _ = _problem(seed=13)
+    assert A.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsp.plan(A, N, **kw)
+    P = tsp.plan(A, N, device="cpu", **kw)
+    assert isinstance(P, tsp.SpmmPlan) and P.device.type == "cpu"
+    # Without a budget a plan computes where A lies, as spmm does.
+    assert tsp.plan(A, N).device.type == "cpu"
 
 
 # -- on the card ---------------------------------------------------------------
